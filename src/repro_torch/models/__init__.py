@@ -1,0 +1,5 @@
+# The simulator's testbeds: convex logistic regression and a small MLP,
+# plain functions on dict trees in the JAX package's layout.
+from repro_torch.models import logreg, mlp
+
+__all__ = ["logreg", "mlp"]
