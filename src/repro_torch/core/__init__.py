@@ -1,1 +1,2 @@
-# Stagewise schedules, the prox surrogate and the N-client simulator.
+# Stagewise schedules, the prox surrogate, the N-client simulator, and the
+# serving steps with the greedy reference decode (core.serving).

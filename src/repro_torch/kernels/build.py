@@ -9,7 +9,8 @@ Nothing but this package's sources goes into it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that no
 multiply-add is contracted into an FMA — the quantize kernel's codes must
-round exactly as the reference's do. ``--use_fast_math`` is never used.
+round exactly as the reference's do (the flash-attention kernel uses
+explicit ``fmaf`` where it wants one). ``--use_fast_math`` is never used.
 """
 from __future__ import annotations
 
@@ -22,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
-SOURCES = ("fused_update.cu", "quantize.cu")
+SOURCES = ("fused_update.cu", "quantize.cu", "flash_attention.cu")
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -91,8 +92,10 @@ def library() -> ctypes.CDLL:
         lib.repro_quantize.argtypes = [vp, vp, vp, vp, i64, i64, f32, vp]
         lib.repro_dequant_mean.argtypes = [vp, vp, vp, i64, i64, f32, f32,
                                            vp]
+        lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, *[i32] * 9,
+                                              f32, f32, vp]
         for fn in (lib.repro_fused_sgd_update, lib.repro_quantize,
-                   lib.repro_dequant_mean):
+                   lib.repro_dequant_mean, lib.repro_flash_attention):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -8,13 +8,19 @@ runs on the machine with the card:
 
 Tolerances as the CPU parity tests state them: the fused update 1e-6 in
 float32 and 1e-2 in bfloat16, quantize codes exactly equal, dequant_mean
-1e-6.
+1e-6. Flash attention: 1e-5 in float32 (the kernel sums the same float32
+products in another order); in bfloat16 the tolerance of
+``kernels/flash_attention/ref.py`` (elementwise 5e-3 + 1e-2 |ref|, each
+query row of each head within 1e-2 of its norm).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import kernel as FA
+from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                     bf16_mismatch)
 from repro_torch.kernels.fused_update.kernel import fused_sgd_update
 from repro_torch.kernels.fused_update.ref import sgd_update_ref
 from repro_torch.kernels.quantize import ops as TQ
@@ -79,6 +85,55 @@ def test_wrappers_raise_on_bad_cuda_inputs(cuda):
     with pytest.raises(ValueError):
         dequant_mean_kernel(torch.zeros(4, 8, device=cuda),
                             torch.ones(4, device=cuda))
+
+
+# (B, Sq, Sk, H, KV, D, causal, window, softcap)
+FLASH_CASES = [
+    (1, 200, 200, 4, 2, 64, True, None, None),      # ragged, one tile short
+    (2, 256, 256, 8, 2, 128, True, 64, 50.0),       # window + softcap
+    (1, 130, 130, 4, 4, 256, True, None, 30.0),     # D = 256
+    (1, 3, 130, 4, 1, 128, True, 32, None),         # queries at the kv tail
+    (1, 96, 160, 2, 2, 64, False, None, None),      # non-causal, Sq < Sk
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain(cuda, case, dtype):
+    B, Sq, Sk, H, KV, D, causal, window, cap = case
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype)
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, causal=causal, window=window,
+                             softcap=cap)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    assert out.dtype == dtype and out.shape == q.shape
+    ref = attention_ref(q, k, v, causal=causal, window=window, softcap=cap)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        err, elem, row = bf16_mismatch(out, ref)
+        assert elem <= 1.0 and row <= 1.0, (err, elem, row)
+
+
+def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):                      # D = 96
+        FA.flash_attention(torch.zeros(1, 8, 2, 96, device=cuda),
+                           torch.zeros(1, 8, 2, 96, device=cuda),
+                           torch.zeros(1, 8, 2, 96, device=cuda))
+    with pytest.raises(TypeError):                       # float16
+        FA.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError):                      # not contiguous
+        FA.flash_attention(q, q.transpose(1, 2).contiguous().transpose(1, 2),
+                           q)
+    off = torch.zeros(8 * 2 * 64 + 1, device=cuda,       # 2-byte aligned
+                      dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError):
+        FA.flash_attention(off, off, off)
 
 
 def test_simulator_runs_through_the_kernels(cuda):

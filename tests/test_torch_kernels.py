@@ -18,6 +18,7 @@ from jax_replay import bits_i32
 from repro.kernels.fused_update.ops import sgd_update as j_sgd_update
 from repro.kernels.quantize import ops as JQ
 from repro_torch import kernels as K
+from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.fused_update import ops as TF
 from repro_torch.kernels.fused_update.kernel import fused_sgd_update
 from repro_torch.kernels.fused_update.ref import sgd_update_ref
@@ -47,9 +48,11 @@ def test_fused_update_matches_jax(n, dtype, beta, wd, impl):
     pj, mj = j_sgd_update(jnp.asarray(p).astype(jdt), jnp.asarray(m),
                           jnp.asarray(g).astype(jdt), eta=0.1, beta=beta,
                           wd=wd, impl=impl)
-    pt = torch.from_numpy(p).to(tdt)
-    mt = torch.from_numpy(m)
-    gt = torch.from_numpy(g).to(tdt)
+    # the port updates in place: it gets its own copies, since JAX may read
+    # the numpy buffers (zero-copy, asynchronously) after this point
+    pt = torch.from_numpy(p.copy()).to(tdt)
+    mt = torch.from_numpy(m.copy())
+    gt = torch.from_numpy(g.copy()).to(tdt)
     TF.sgd_update_(pt, mt, gt, eta=0.1, beta=beta, wd=wd)   # in place
     tol = 1e-6 if dtype == "float32" else 1e-2
     np.testing.assert_allclose(pt.float().numpy(),
@@ -101,8 +104,12 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     with pytest.raises(ValueError):
         dequant_mean_kernel(torch.zeros(4, 8, dtype=torch.int8),
                             torch.ones(4))
+    with pytest.raises(ValueError):
+        FA.flash_attention(torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64),
+                           torch.zeros(1, 8, 2, 64))
     assert K.launch_counts() == {"fused_sgd_update": 0, "quantize_kernel": 0,
-                                 "dequant_mean_kernel": 0}
+                                 "dequant_mean_kernel": 0,
+                                 "flash_attention": 0}
 
 
 def _quant_inputs(N=4, M=1000, seed=0):
