@@ -43,7 +43,8 @@ failure propagates, so the script exits non-zero and prints no result.
      (held to the plain version first; the port never calls it).
   6. Serving, small: the card's run of gemma2-27b's SMOKE config (2 layers
      L+G, window 64, float32) against the CPU run on the same weights, one
-     80-token prompt through ``prefill`` and 8 decode steps.
+     80-token prompt through ``prefill`` and 8 decode steps, logits to
+     1e-4.
   7. Serving at full width: gemma2-27b FULL (46 layers, d_model 4608,
      vocab 256000, bfloat16, random weights from seed 0) behind
      ``ServeEngine`` with 4 slots of 6,144 tokens, 6 Poisson requests plus
@@ -53,8 +54,29 @@ failure propagates, so the script exits non-zero and prints no result.
      ``greedy_decode`` (first token exactly; later ones up to the first
      near-tie). Prints wall, tok/s, prefill and decode-step times, peak
      memory and a profile of one prefill and 4 decode steps.
-  8. One ``{"kernels": [...]}`` summary line, then the last line
-     ``{"ok": true, "device": {...}}``.
+  8. The SSD kernel against its plain version on the card (the plain
+     chunked version first held to the sequential recurrence): mamba2-2.7b's
+     layer at a 4,096-token prefill, (1, 4096, 80, 64) with N = 128 and
+     chunk 256, its 4,000-token prompt (a 160-row last chunk), the Pallas
+     test's grouped (2, 256, 4, 64) G = 2 shapes at chunk 64 and 128, all
+     float32 within 3e-4 (absolute plus relative, y and the final state),
+     and the layer with bf16 inputs within 5e-2 (the JAX package's
+     tolerances). Timed like phase 3, bound by its operations (the lower
+     triangle's multiply-adds over 67 TFLOP/s float32) or bytes; no single
+     PyTorch call computes the scan, so it has no library time.
+  9. Serving, small: mamba2-2.7b's SMOKE config (2 layers, chunk 64,
+     float32) on the card against the CPU, one 100-token prompt (a short
+     last chunk) through ``prefill`` and 8 decode steps, logits to 1e-4.
+ 10. Serving at full width: mamba2-2.7b FULL (64 layers, d_model 2560,
+     80 SSD heads, vocab 50280, bfloat16, random weights from seed 0)
+     behind ``ServeEngine`` with 8 slots of 6,144 tokens, 12 Poisson
+     requests, one 4,000-token prompt with 24 outputs and a one-token
+     prompt that lands in a used slot after the drain. Every request must
+     complete, the SSD kernel must launch 64 times per multi-token
+     prefill, and the tokens must match ``greedy_decode`` as in phase 7.
+     Timed and profiled as phase 7.
+ 11. One ``{"kernels": [...]}`` summary line (all five kernels), then the
+     last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -509,27 +531,131 @@ def check_flash(torch):
     return rows
 
 
-def serve_reference_check(torch):
-    """Phase 6: gemma2-27b SMOKE in float32 on the card against the CPU
-    run (plain versions) on the same weights: an 80-token prompt (longer
-    than the window of 64) through ``prefill``, then 8 decode steps fed
-    the CPU run's tokens. Max logit difference 1e-4: float32 on both sides
-    (TF32 off), sums in another order through two layers, logits at most
-    30 after the final softcap."""
+def ssd_work(b, S, H, P, G, N, chunk, elt):
+    """(bytes, FLOPs) the SSD scan must move and compute at this shape.
+
+    Bytes: x, B, C (``elt`` bytes each), dt and A read once, y written once
+    in x's type, the float32 state written once. FLOPs, per chunk of q
+    rows: C·Bᵀ once per group over the lower triangle (q(q+1)/2 pairs × N),
+    the intra-chunk product over the same pairs × P per head, the state
+    term of y (q × N × P per head, not in the first chunk, whose entering
+    state is zero) and the state update (q × P × N per head); 2 FLOPs per
+    multiply-add."""
+    Q = min(chunk, S)
+    flops = 0.0
+    for c in range(-(-S // Q)):
+        q = min(Q, S - c * Q)
+        tri = q * (q + 1) / 2
+        flops += 2.0 * b * (G * tri * N + H * tri * P
+                            + (H * q * N * P if c else 0) + H * q * P * N)
+    n_bytes = (elt * (2 * b * S * H * P + 2 * b * S * G * N)
+               + 4 * (b * S * H + H + b * H * P * N))
+    return n_bytes, flops
+
+
+def check_ssd(torch):
+    """Phase 8: the SSD kernel against its plain version, and its times."""
+    from repro_torch.kernels.ssd.kernel import ssd
+    from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_ref
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(3)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def inputs(b, S, H, P, G, N, dt_):
+        rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+        return ((rn(b, S, H, P) * 0.5).to(dt_),
+                torch.nn.functional.softplus(rn(b, S, H)) * 0.1,
+                -torch.exp(rn(H) * 0.3), (rn(b, S, G, N) * 0.3).to(dt_),
+                (rn(b, S, G, N) * 0.3).to(dt_))
+
+    # the plain chunked version against the sequential recurrence first
+    for shape, chunk in (((2, 256, 4, 64, 2, 32), 64),
+                         ((1, 200, 4, 32, 2, 16), 64)):
+        args = inputs(*shape, f32)
+        (yc, sc), (yr, sr) = ssd_chunked_ref(*args, chunk), ssd_ref(*args)
+        err = max(float((yc - yr).abs().max()), float((sc - sr).abs().max()))
+        log(f"[ssd] plain chunked vs recurrence {shape} chunk {chunk}: max "
+            f"err {err:.3g} (tol 3e-4)")
+        if not err <= 3e-4:
+            raise AssertionError(f"ssd_chunked_ref vs ssd_ref {shape}: {err}")
+
+    # label: (b, S, H, P, G, N, chunk, dtype); mamba2-2.7b's layer at a
+    # 4,096-token prefill, its 4,000-token prompt (a 160-row last chunk),
+    # the Pallas test's grouped shapes, and the layer with bf16 inputs
+    cases = {
+        "layer": (1, 4096, 80, 64, 1, 128, 256, f32),
+        "ragged": (1, 4000, 80, 64, 1, 128, 256, f32),
+        "g2_c64": (2, 256, 4, 64, 2, 32, 64, f32),
+        "g2_c128": (2, 256, 4, 64, 2, 32, 128, f32),
+        "bf16": (1, 4096, 80, 64, 1, 128, 256, bf),
+    }
+    rows = {}
+    for label, (b, S, H, P, G, N, chunk, dt_) in cases.items():
+        args = inputs(b, S, H, P, G, N, dt_)
+        kern = lambda: ssd(*args, chunk=chunk)
+        plain = lambda: ssd_chunked_ref(*args, chunk)
+        (y, st), (yr, sr) = kern(), plain()
+        torch.cuda.synchronize()
+        # the JAX package's tolerances (tests/test_ssd_kernel.py):
+        # |d| <= tol + tol |ref| for y and the final state
+        tol = 3e-4 if dt_ == f32 else 5e-2
+        err, worst = 0.0, 0.0
+        for got, ref in ((y.float(), yr), (st, sr)):
+            d = (got - ref).abs()
+            err = max(err, float(d.max()))
+            worst = max(worst, float((d / (tol + tol * ref.abs())).max()))
+        log(f"[ssd] {label:8s} {(b, S, H, P)} G {G} N {N} chunk {chunk} "
+            f"{dt_}: max err {err:.3g}, {worst:.3f} of tol {tol}")
+        if not worst <= 1.0:
+            raise AssertionError(f"ssd {label}: max err {err}")
+        del y, st, yr, sr
+        big = S > 1000
+        ms = device_ms(torch, kern, batch=2 if big else 10,
+                       reps=10 if big else TIMING_REPS)
+        plain_ms = device_ms(torch, plain, batch=1 if big else 10,
+                             reps=5 if big else TIMING_REPS)
+        one = call_ms(torch, kern, reps=10 if big else TIMING_REPS)
+        n_bytes, n_flops = ssd_work(b, S, H, P, G, N, chunk,
+                                    args[0].element_size())
+        bms, by = bound_ms(n_bytes, n_flops)
+        rows[label] = {"shape": [b, S, H, P, G, N], "chunk": chunk,
+                       "dtype": str(dt_), "ms": ms, "plain_ms": plain_ms,
+                       "call_ms": one, "library_ms": None, "bound_ms": bms,
+                       "bound_by": by, "max_abs_err": err,
+                       "of_tol": worst, "tflops": n_flops / ms / 1e9}
+        log(f"[ssd] {label:8s} device {ms:.3f} ms, one call {one:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, library none, bound {bms:.4f} ms "
+            f"({by}: {n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
+            f"{n_flops / ms / 1e9:.2f} TFLOP/s")
+        del args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def serve_reference_check(torch, arch: str, n_prompt: int):
+    """Phases 6 and 9: ``arch``'s SMOKE config in float32 on the card
+    against the CPU run (plain versions) on the same weights: an
+    ``n_prompt``-token prompt through ``prefill``, then 8 decode steps fed
+    the CPU run's tokens. gemma2-27b's 80-token prompt is longer than its
+    window of 64; mamba2-2.7b's 100-token prompt ends in a short chunk
+    (chunk 64). Max logit difference 1e-4: float32 on both sides (TF32
+    off), sums in another order through two layers, logits at most 30
+    (gemma2, after the final softcap) or a few units (mamba2)."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as TF
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_arch("gemma2-27b", smoke=True).replace(dtype="float32")
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
     p_cpu = TF.init_params(cfg, seed=0, device="cpu")
     p_gpu = tree_map(lambda t: t.to("cuda:0"), p_cpu)
     prompt = torch.from_numpy(np.random.RandomState(0).randint(
-        0, cfg.vocab_size, size=(1, 80))).long()
+        0, cfg.vocab_size, size=(1, n_prompt))).long()
     runs = {}
     for dev, params in (("cpu", p_cpu), ("cuda:0", p_gpu)):
-        cache = TF.init_cache(cfg, 1, 96, device=dev)
+        cache = TF.init_cache(cfg, 1, n_prompt + 16, device=dev)
         logits, cache = TF.prefill(params, cfg, prompt.to(dev), cache)
         steps = [logits[:, -1].cpu()]
         toks = runs["cpu"]["toks"] if dev != "cpu" else []
@@ -542,14 +668,26 @@ def serve_reference_check(torch):
         runs[dev] = {"toks": toks, "logits": torch.stack(steps)}
     err = float((runs["cpu"]["logits"] - runs["cuda:0"]["logits"]).abs()
                 .max())
-    log(f"[reference] gemma2-27b smoke f32, 80-token prompt + 8 decode "
+    log(f"[reference] {arch} smoke f32, {n_prompt}-token prompt + 8 decode "
         f"steps: card vs CPU max |logit diff| {err:.3g} (tol 1e-4)")
     if not err <= 1e-4:
-        raise AssertionError(f"serve reference: card vs CPU {err}")
+        raise AssertionError(f"serve reference {arch}: card vs CPU {err}")
+    return err
 
 
-def serve_full_width(torch):
-    """Phase 7: gemma2-27b at full width behind ServeEngine."""
+# The two full-width serving cells: arch, slots, Poisson requests, the
+# long prompt's length and outputs, the kernel each prefill launches once per
+# layer, and whether a one-token prompt joins a used slot after the drain.
+SERVE_CELLS = {
+    "gemma2-27b": dict(n_slots=4, n_requests=6, long_len=4608, long_out=24,
+                       kernel="flash_attention", one_token=False),
+    "mamba2-2.7b": dict(n_slots=8, n_requests=12, long_len=4000, long_out=24,
+                        kernel="ssd", one_token=True),
+}
+
+
+def serve_full_width(torch, arch: str):
+    """Phases 7 and 10: ``arch`` at full width behind ServeEngine."""
     import numpy as np
 
     from repro_torch import kernels
@@ -562,28 +700,37 @@ def serve_full_width(torch):
                                    TrafficConfig, generate_requests)
     from repro_torch.utils.tree import tree_leaves
 
+    cell = SERVE_CELLS[arch]
     dev = torch.device("cuda:0")
-    cfg = get_arch("gemma2-27b")
+    cfg = get_arch(arch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = TF.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"[serve] gemma2-27b: {n_params / 1e9:.2f} B params in {cfg.dtype}"
+    log(f"[serve] {arch}: {n_params / 1e9:.2f} B params in {cfg.dtype}"
         f" made on the card in {time.monotonic() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
-    sched = SchedulerConfig(n_slots=4, max_seq_len=6144)
+    sched = SchedulerConfig(n_slots=cell["n_slots"], max_seq_len=6144)
     eng = ServeEngine(cfg, params, scheduler=sched)
     rate = 0.7 * sched.n_slots / eng.decode_step_s   # launch/serve's rule
     reqs = generate_requests(TrafficConfig(
-        process="poisson", n_requests=6, mean_prompt_len=512,
-        max_prompt_len=2048, mean_out_len=16, max_out_len=32, seed=0,
-        rate_rps=rate), cfg.vocab_size)
+        process="poisson", n_requests=cell["n_requests"],
+        mean_prompt_len=512, max_prompt_len=2048, mean_out_len=16,
+        max_out_len=32, seed=0, rate_rps=rate), cfg.vocab_size)
+    n = len(reqs)
     long_prompt = np.random.RandomState(1).randint(
-        0, cfg.vocab_size, size=(4608,)).astype(np.int32)
-    reqs.append(Request(id=6, arrival_s=reqs[2].arrival_s,
-                        prompt=long_prompt, n_out=24))
+        0, cfg.vocab_size, size=(cell["long_len"],)).astype(np.int32)
+    reqs.append(Request(id=n, arrival_s=reqs[2].arrival_s,
+                        prompt=long_prompt, n_out=cell["long_out"]))
+    if cell["one_token"]:
+        # after every earlier request has drained (the modeled clock runs
+        # prefills and decode steps one after another): lands in slot 0
+        drained = max(r.arrival_s for r in reqs) + sum(
+            eng.prefill_s(r) + r.n_out * eng.decode_step_s for r in reqs)
+        reqs.append(Request(id=n + 1, arrival_s=drained,
+                            prompt=np.array([11], np.int32), n_out=6))
     log(f"[serve] requests (prompt, n_out): "
         f"{[(r.prompt_len, r.n_out) for r in reqs]}; rate {rate:.1f} rps, "
         f"modeled decode step {eng.decode_step_s * 1e3:.3f} ms")
@@ -605,13 +752,26 @@ def serve_full_width(torch):
         f"launches {counts}")
     if len(report.completed) != len(reqs) or any(
             len(r.tokens) != r.n_out for r in report.records):
-        raise AssertionError("serve: not every request completed")
-    if counts["flash_attention"] != cfg.n_layers * report.n_prefills:
-        raise AssertionError(f"serve: flash_attention launched "
-                             f"{counts['flash_attention']} times for "
-                             f"{report.n_prefills} prefills")
+        raise AssertionError(f"serve {arch}: not every request completed")
+    kname = cell["kernel"]
+    # a one-token prompt takes the decode branch: no kernel launch
+    multi = sum(1 for r in reqs if r.prompt_len > 1)
+    if report.n_prefills != len(reqs) or \
+            counts[kname] != cfg.n_layers * multi:
+        raise AssertionError(f"serve {arch}: {kname} launched "
+                             f"{counts[kname]} times for {multi} "
+                             f"multi-token prefills")
     if not math.isfinite(report.makespan_s) or report.makespan_s <= 0:
-        raise AssertionError(f"serve: makespan {report.makespan_s}")
+        raise AssertionError(f"serve {arch}: makespan {report.makespan_s}")
+    if cell["one_token"]:
+        rec = report.records[-1]
+        used = [r.id for r in report.records[:-1] if r.slot == rec.slot
+                and r.finish_s <= rec.admit_s]
+        if not used:
+            raise AssertionError(f"serve {arch}: the one-token prompt did "
+                                 f"not land in a used slot")
+        log(f"[serve] one-token request {rec.id} in slot {rec.slot}, used "
+            f"before by requests {used}")
 
     compared = total = 0
     for r, rec in zip(reqs, report.records):
@@ -621,46 +781,49 @@ def serve_full_width(torch):
                                     sched.max_seq_len)
         ref, margin = ref[0].tolist(), margin[0].tolist()
         if rec.tokens[0] != ref[0]:
-            raise AssertionError(f"serve: request {r.id} first token "
+            raise AssertionError(f"serve {arch}: request {r.id} first token "
                                  f"{rec.tokens[0]} != greedy {ref[0]}")
-        n = 1
+        k = 1
         for i in range(1, r.n_out):
             if margin[i] < MARGIN_TOL:
                 break
             if rec.tokens[i] != ref[i]:
                 raise AssertionError(
-                    f"serve: request {r.id} token {i}: {rec.tokens[i]} != "
-                    f"greedy {ref[i]} at top-2 margin {margin[i]:.3f}")
-            n += 1
-        compared += n
+                    f"serve {arch}: request {r.id} token {i}: "
+                    f"{rec.tokens[i]} != greedy {ref[i]} at top-2 margin "
+                    f"{margin[i]:.3f}")
+            k += 1
+        compared += k
         total += r.n_out
         log(f"[serve] request {r.id}: prompt {r.prompt_len}, slot "
-            f"{rec.slot}, {n}/{r.n_out} tokens compared, equal to "
+            f"{rec.slot}, {k}/{r.n_out} tokens compared, equal to "
             f"greedy_decode (min margin {min(margin):.3f})")
     log(f"[serve] tokens held to greedy_decode: {compared} of {total}")
     del eng
     torch.cuda.empty_cache()
-    step = time_serve_steps(torch, cfg, params, sched, reqs)
-    return {"wall_s": wall, "tok_s": tokens / wall, "tokens": tokens,
-            "n_prefills": report.n_prefills, "n_steps": report.n_steps,
-            "peak_gb": peak / 1e9, "makespan_s": report.makespan_s,
+    step = time_serve_steps(torch, cfg, params, sched, long_prompt)
+    return {"arch": arch, "wall_s": wall, "tok_s": tokens / wall,
+            "tokens": tokens, "n_prefills": report.n_prefills,
+            "n_steps": report.n_steps, "peak_gb": peak / 1e9,
+            "makespan_s": report.makespan_s,
             "modeled_tok_s": report.modeled_tok_s,
             "tokens_compared": compared, "tokens_total": total,
-            "flash_launches": counts["flash_attention"], **step}
+            "launches": counts[kname], **step}
 
 
-def time_serve_steps(torch, cfg, params, sched, reqs):
-    """Host-clock times (synchronized) of a 512-token and the 4,608-token
-    prefill and of the 4-slot decode step, then torch.profiler over one
+def time_serve_steps(torch, cfg, params, sched, long_prompt):
+    """Host-clock times (synchronized) of a 512-token and the long prefill
+    and of the full-width decode step, then torch.profiler over one
     prefill and 4 decode steps: the top device ops."""
     from repro_torch.models import transformer as TF
 
     dev = torch.device("cuda:0")
     stacked = TF.init_cache(cfg, sched.n_slots, sched.max_seq_len, device=dev)
     toks = torch.zeros((sched.n_slots, 1), dtype=torch.long, device=dev)
-    long_prompt = torch.as_tensor(reqs[-1].prompt[None], dtype=torch.long,
+    long_prompt = torch.as_tensor(long_prompt[None], dtype=torch.long,
                                   device=dev)
-    prompts = {512: long_prompt[:, :512], 4608: long_prompt}
+    n_long = long_prompt.shape[1]
+    prompts = {512: long_prompt[:, :512], n_long: long_prompt}
 
     def prefill(n, slot=0):
         logits, _ = TF.prefill(params, cfg, prompts[n],
@@ -669,7 +832,7 @@ def time_serve_steps(torch, cfg, params, sched, reqs):
 
     out = {}
     with torch.no_grad():
-        for n in (512, 4608):
+        for n in (512, n_long):
             prefill(n)                   # warm-up
             torch.cuda.synchronize()
             ts = []
@@ -690,10 +853,11 @@ def time_serve_steps(torch, cfg, params, sched, reqs):
             torch.cuda.synchronize()
             ts.append(time.monotonic() - t0)
         out["decode_step_ms"] = statistics.median(ts) * 1e3
-        log(f"[serve] prefill 512 tokens {out['prefill_512_ms']:.1f} ms, "
-            f"prefill 4608 tokens {out['prefill_4608_ms']:.1f} ms, decode "
-            f"step (4 slots) {out['decode_step_ms']:.2f} ms (host clock, "
-            f"synchronized, median)")
+        log(f"[serve] {cfg.name}: prefill 512 tokens "
+            f"{out['prefill_512_ms']:.1f} ms, prefill {n_long} tokens "
+            f"{out[f'prefill_{n_long}_ms']:.1f} ms, decode step "
+            f"({sched.n_slots} slots) {out['decode_step_ms']:.2f} ms (host "
+            f"clock, synchronized, median)")
 
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -708,10 +872,11 @@ def time_serve_steps(torch, cfg, params, sched, reqs):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     if not kern:
-        log(f"[profile] serve: {wall * 1e3:.1f} ms; device time not "
-            f"measured (no CUDA events traced)")
+        log(f"[profile] serve {cfg.name}: {wall * 1e3:.1f} ms; device time "
+            f"not measured (no CUDA events traced)")
         return out
-    log(f"[profile] serve, one 512-token prefill + 4 decode steps: wall "
+    log(f"[profile] serve {cfg.name}, one 512-token prefill + 4 decode "
+        f"steps: wall "
         f"{wall * 1e3:.1f} ms under the profiler, device busy "
         f"{busy_us / 1e3:.2f} ms ({100 * busy_us / (wall * 1e6):.1f}% of "
         f"wall), {sum(e.count for e in kern)} kernels")
@@ -767,14 +932,22 @@ def main() -> int:
     for model in ("logreg", "mlp"):
         profile_slice(torch, model, x, y)
 
-    # phases 5-7: flash attention, then the serving path
+    # phases 5-7: flash attention, then the gemma2 serving path
     flash = check_flash(torch)
-    serve_reference_check(torch)
+    serve_reference_check(torch, "gemma2-27b", 80)
     torch.cuda.empty_cache()
-    serve = serve_full_width(torch)
-    launches["flash_attention"] = serve["flash_launches"]
+    serve = serve_full_width(torch, "gemma2-27b")
+    launches["flash_attention"] = serve["launches"]
+    torch.cuda.empty_cache()
 
-    # phase 8: summary
+    # phases 8-10: the SSD kernel, then the mamba2 serving path
+    ssd_rows = check_ssd(torch)
+    serve_reference_check(torch, "mamba2-2.7b", 100)
+    torch.cuda.empty_cache()
+    serve_m = serve_full_width(torch, "mamba2-2.7b")
+    launches["ssd"] = serve_m["launches"]
+
+    # phase 11: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -809,7 +982,17 @@ def main() -> int:
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "library_ms": g["library_ms"], "shape": g["shape"],
                 "shapes": flash})
-    log(json.dumps({"kernels": out, "serve": serve, "card": smi}))
+    m = ssd_rows["layer"]  # mamba2-2.7b's layer at a 4,096-token prefill
+    out.append({"name": "ssd", "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/ssd.cu",
+                "replaces": "src/repro/kernels/ssd/kernel.py:68",
+                "launches": launches["ssd"],
+                "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
+                "ms": m["ms"], "plain_ms": m["plain_ms"],
+                "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+                "library_ms": None, "shape": m["shape"], "shapes": ssd_rows})
+    log(json.dumps({"kernels": out, "serve": serve, "serve_mamba2": serve_m,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -16,10 +16,11 @@ from repro_torch.configs.base import (
     SSMConfig,
     TrainConfig,
 )
-from repro_torch.configs import gemma2_27b, qwen3_14b
+from repro_torch.configs import gemma2_27b, mamba2_2_7b, qwen3_14b
 
 ARCHS = {
     "gemma2-27b": gemma2_27b,
+    "mamba2-2.7b": mamba2_2_7b,
     "qwen3-14b": qwen3_14b,
 }
 
@@ -33,7 +34,6 @@ WAITING = {
     "gemma3-12b": "its config module; its GQA layers are ported (ROADMAP "
                   "queue 1: more archs on the ported layers)",
     "recurrentgemma-2b": "RG-LRU layers (ROADMAP queue 1: RG-LRU)",
-    "mamba2-2.7b": "the Mamba2 slice with the ssd kernel (ROADMAP queue 1)",
 }
 
 # Archs whose base attention is quadratic-full: long_500k runs their

@@ -1,10 +1,11 @@
 """Serving step builders and the per-request greedy reference.
 
 The port of ``src/repro/core/serving.py:22-69``. A prefill runs the prompt
-through an empty KV cache (one flash-attention launch per layer); a serve
-step decodes ONE new token per batch row against the cache (ring buffer of
-the window for local layers). Sharded serving (``serve_shardings``) waits
-for the sharding slice.
+through an empty cache (one flash-attention launch per attention layer,
+one SSD-kernel launch per Mamba2 layer); a serve step decodes ONE new
+token per batch row against the cache (ring buffer of the window for local
+layers, the recurrent state update for Mamba2 layers). Sharded serving
+(``serve_shardings``) waits for the sharding slice.
 """
 from __future__ import annotations
 

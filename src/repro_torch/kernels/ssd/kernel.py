@@ -1,0 +1,101 @@
+"""Launcher of the Hopper SSD chunked-scan kernel (``csrc/ssd.cu``).
+
+Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py:68``
+(``ssd_chunked_kernel``): Mamba2's SSD scan from a zero state, y and the
+final state, float32 math inside. The kernel is bound by operations: per
+head and chunk the lower triangle of ``(C·Bᵀ ∘ L)·(x·dt)``, the state term
+of y and the state update, about 16 GFLOP per mamba2-2.7b layer at 4,096
+tokens against 176 MB moved, so its bound on an H100 SXM is that work over
+67 TFLOP/s (float32, CUDA cores). One call covers every batch row, head
+and chunk in two kernels (C·Bᵀ once per group and chunk, into a float32
+scratch the wrapper allocates, then the scan); any S is taken (the last
+chunk may be short).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels.build import check, library
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+D_STATES = (16, 32, 128)   # the Pallas tests' and mamba2-2.7b's
+P_MULTIPLE = 16     # the kernel splits P into blocks of 16 state rows
+MAX_CHUNK = 256     # one scan row per thread of a block
+
+
+def check_inputs(x, dt, A, B, C, chunk: int):
+    """Raise on shapes the scan does not define (both routes)."""
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"ssd: {name} must be a tensor")
+        if t.device != x.device:
+            raise ValueError(f"ssd: {name} is on {t.device}, x on {x.device}")
+    if x.dim() != 4:
+        raise ValueError(f"ssd: x must be (b, S, H, P), got {tuple(x.shape)}")
+    b, S, H, P = x.shape
+    if tuple(dt.shape) != (b, S, H) or tuple(A.shape) != (H,):
+        raise ValueError(f"ssd: dt {tuple(dt.shape)} / A {tuple(A.shape)} do "
+                         f"not fit x {tuple(x.shape)}")
+    if B.dim() != 4 or B.shape != C.shape or tuple(B.shape[:2]) != (b, S):
+        raise ValueError(f"ssd: B {tuple(B.shape)} / C {tuple(C.shape)} must "
+                         f"both be (b, S, G, N) with x's b and S")
+    G = B.shape[2]
+    if G < 1 or H % G:
+        raise ValueError(f"ssd: {G} B/C groups do not divide {H} heads")
+    if S < 1 or chunk < 1:
+        raise ValueError(f"ssd: needs S >= 1 and chunk >= 1, got S={S}, "
+                         f"chunk={chunk}")
+
+
+def ssd(x, dt, A, B, C, *, chunk: int = 128):
+    """x: (b,S,H,P)  dt: (b,S,H) f32  A: (H,) f32  B,C: (b,S,G,N).
+
+    Returns y (b,S,H,P) in x's type and the final state (b,H,P,N) float32,
+    chunks of Q = min(chunk, S) rows. CUDA tensors only, contiguous and
+    16-byte aligned; x, B and C all float32 or all bfloat16; P a multiple
+    of 16, N in ``D_STATES``, Q at most 256. Anything else raises; nothing
+    falls back.
+    """
+    check_inputs(x, dt, A, B, C, chunk)
+    if x.device.type != "cuda":
+        raise ValueError(f"ssd: the kernel takes CUDA tensors, got {x.device}")
+    if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
+        raise TypeError(f"ssd: x, B, C must all be float32 or all bfloat16, "
+                        f"got {x.dtype}/{B.dtype}/{C.dtype}")
+    if dt.dtype != torch.float32 or A.dtype != torch.float32:
+        raise TypeError(f"ssd: dt and A must be float32, got "
+                        f"{dt.dtype}/{A.dtype}")
+    b, S, H, P = x.shape
+    G, N = B.shape[2], B.shape[3]
+    Q = min(chunk, S)
+    if P % P_MULTIPLE:
+        raise ValueError(f"ssd: head dim {P} is not a multiple of "
+                         f"{P_MULTIPLE}")
+    if N not in D_STATES:
+        raise ValueError(f"ssd: state dim {N} not in {D_STATES}")
+    if Q > MAX_CHUNK:
+        raise ValueError(f"ssd: chunk {Q} exceeds {MAX_CHUNK}")
+    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+        if not t.is_contiguous():
+            raise ValueError(f"ssd: {name} is not contiguous")
+        if t.data_ptr() % 16:   # the kernel loads 16-byte vectors
+            raise ValueError(f"ssd: {name} is not 16-byte aligned")
+    y = torch.empty_like(x)
+    state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
+    # C·Bᵀ of every (batch row, group, chunk), Q padded to whole 64-row tiles
+    QP = -(-Q // 64) * 64
+    cb = torch.empty((b, G, -(-S // Q), QP, QP), dtype=torch.float32,
+                     device=x.device)
+    lib = library()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        status = lib.repro_ssd(
+            x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
+            C.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(), b,
+            S, H, P, G, N, Q, _DTYPE_CODE[x.dtype], stream)
+    ssd.launches += 1
+    check(status, "ssd")
+    return y, state
+
+
+ssd.launches = 0

@@ -1,0 +1,146 @@
+"""Mamba2 block — SSD (state-space duality). [arXiv:2405.21060]
+
+The port of ``src/repro/models/ssm.py:22-197``. A multi-token call (prefill,
+scoring) runs the SSD scan in its chunked form through
+``kernels.ssd.ops.ssd``: the Hopper kernel ``csrc/ssd.cu`` for a CUDA
+tensor, the plain ``ssd_chunked_ref`` for a CPU one. Unlike the JAX model,
+whose chunked scan asserts ``S % chunk == 0``, any prompt length is taken:
+the last chunk may be short. A single-token call with a cache is the plain
+recurrent update, batched over the cache's rows (the serving engine's
+slots).
+
+The cache holds the conv carry (the last ``d_conv - 1`` conv inputs) and
+the SSM state (H, P, N) in float32: O(1) in the sequence length. It is
+written in place, as the attention caches are. A multi-token call scans
+from a zero state, as a prefill from an empty cache does (the transformer's
+``prefill`` zeroes a reused row first); the JAX model would continue from
+``cache["state"]`` instead.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.models.layers import _normal, dense_init, rms_norm
+
+
+def check_supported(cfg: ArchConfig):
+    """Raise for what the Mamba2 block does not build, as the JAX model
+    raises for grouped B/C (``src/repro/models/ssm.py:111-114``)."""
+    if cfg.ssm is None:
+        raise ValueError(f"{cfg.name}: layer kind 'M' needs an SSMConfig")
+    if cfg.ssm.n_groups > 1:
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba2 with n_groups > 1 is not built, as in the "
+            f"JAX model (ROADMAP queue 1: grouped Mamba2 B/C)")
+
+
+def _dims(cfg: ArchConfig):
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    n_heads = d_inner // ssm.head_dim
+    conv_ch = d_inner + 2 * ssm.n_groups * ssm.d_state
+    d_in_proj = 2 * d_inner + 2 * ssm.n_groups * ssm.d_state + n_heads
+    return d_inner, n_heads, conv_ch, d_in_proj
+
+
+def init_mamba2(gen: torch.Generator, cfg: ArchConfig, dtype):
+    ssm = cfg.ssm
+    d_inner, n_heads, conv_ch, d_in_proj = _dims(cfg)
+    dev = gen.device
+    f32 = torch.float32
+    return {
+        "w_in": dense_init(gen, cfg.d_model, d_in_proj, dtype),
+        "conv_w": _normal(gen, (ssm.d_conv, conv_ch), 0.1, dtype),
+        "A_log": torch.zeros((n_heads,), dtype=f32, device=dev),
+        "D": torch.ones((n_heads,), dtype=f32, device=dev),
+        "dt_bias": torch.zeros((n_heads,), dtype=f32, device=dev),
+        "ssm_norm": torch.zeros((d_inner,), dtype=dtype, device=dev),
+        "w_out_ssm": dense_init(gen, d_inner, cfg.d_model, dtype),
+    }
+
+
+def _split_in_proj(cfg: ArchConfig, zxbcdt):
+    ssm = cfg.ssm
+    d_inner, n_heads, _, _ = _dims(cfg)
+    gN = ssm.n_groups * ssm.d_state
+    return torch.split(zxbcdt, [d_inner, d_inner, gN, gN, n_heads], dim=-1)
+
+
+def _causal_conv(x, w, carry=None):
+    """Depthwise causal conv. x: (B,S,ch), w: (K,ch). carry: (B,K-1,ch) or
+    None. Returns (silu(conv), the new carry)."""
+    K = w.shape[0]
+    if carry is None:
+        pad = x.new_zeros((x.shape[0], K - 1, x.shape[2]))
+    else:
+        pad = carry.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)                  # (B, S+K-1, ch)
+    S = x.shape[1]
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    return F.silu(out), xp[:, -(K - 1):]
+
+
+def apply_mamba2(params, cfg: ArchConfig, x, cache=None):
+    """x: (B,S,d). cache: None or {"conv": (B,K-1,ch), "state": (B,H,P,N)},
+    updated in place. Returns (out (B,S,d), cache)."""
+    check_supported(cfg)
+    ssm = cfg.ssm
+    d_inner, n_heads, _, _ = _dims(cfg)
+    gN = ssm.n_groups * ssm.d_state
+    B_, S, _ = x.shape
+    zxbcdt = x @ params["w_in"]
+    z, xs, Bc, Cc, dt = _split_in_proj(cfg, zxbcdt)
+
+    conv_in = torch.cat([xs, Bc, Cc], dim=-1)
+    conv_carry = None if cache is None else cache["conv"]
+    conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_carry)
+    xs = conv_out[..., :d_inner].reshape(B_, S, n_heads, ssm.head_dim)
+    Bc = conv_out[..., d_inner:d_inner + gN].reshape(
+        B_, S, ssm.n_groups, ssm.d_state)
+    Cc = conv_out[..., d_inner + gN:].reshape(B_, S, ssm.n_groups,
+                                             ssm.d_state)
+    dt = F.softplus(dt.float() + params["dt_bias"])
+    A = -torch.exp(params["A_log"])
+
+    if cache is None or S > 1:
+        # the kernel's inputs: float32 and contiguous, so y is float32 as
+        # the JAX model's is
+        f32 = lambda t: t.float().contiguous()
+        y, final_state = ssd(f32(xs), dt.contiguous(), A.contiguous(),
+                             f32(Bc), f32(Cc), chunk=ssm.chunk_size)
+    else:
+        # single-token recurrent decode: state' = exp(dt·A)·state + dt·x Bᵀ
+        st = cache["state"].float()                          # (B,H,P,N)
+        dA1 = torch.exp(dt[:, 0] * A[None, :])               # (B,H)
+        xb = torch.einsum("bhp,bgn->bhpn",
+                          (xs[:, 0] * dt[:, 0, :, None]).float(),
+                          Bc[:, 0].float())
+        final_state = st * dA1[..., None, None] + xb
+        y = torch.einsum("bhpn,bgn->bhp", final_state,
+                         Cc[:, 0].float())[:, None]
+
+    y = y + xs.float() * params["D"][None, None, :, None]
+    y = y.reshape(B_, S, d_inner).to(x.dtype)
+    y = rms_norm(y * F.silu(z.float()).to(x.dtype), params["ssm_norm"],
+                 cfg.norm_eps)
+    out = y @ params["w_out_ssm"]
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["state"].copy_(final_state)
+    return out, cache
+
+
+def init_mamba2_cache(cfg: ArchConfig, batch: int, dtype, device=None):
+    ssm = cfg.ssm
+    d_inner, n_heads, conv_ch, _ = _dims(cfg)
+    return {
+        "conv": torch.zeros((batch, ssm.d_conv - 1, conv_ch), dtype=dtype,
+                            device=device),
+        "state": torch.zeros((batch, n_heads, ssm.head_dim, ssm.d_state),
+                             dtype=torch.float32, device=device),
+    }

@@ -1,7 +1,8 @@
 """Decoder LM assembled from an ArchConfig.
 
 The port of ``src/repro/models/transformer.py:39-304`` for attention
-layers (kinds ``G`` and ``L``) with dense SwiGLU MLPs. The JAX package
+layers (kinds ``G`` and ``L``) with dense SwiGLU MLPs and Mamba2 layers
+(kind ``M``, ``models/ssm.py``). The JAX package
 stacks each group of ``block_pattern`` layers for ``lax.scan``; here the
 layers are a Python list in layer order (``params["layers"]``, one cache
 per layer in ``cache["layers"]``). ``utils/convert.py`` maps a JAX tree
@@ -16,8 +17,9 @@ Public API:
 
 ``cache["pos"]`` is a (B,) integer tensor: each batch row's token count,
 so a batch of independent sequences (the serving engine's slots) decodes
-in one call. Caches are updated in place; ``prefill`` fills an empty
-cache (or a batch-row view of one, see ``cache_rows``).
+in one call. An attention layer's cache holds K/V, a Mamba2 layer's its
+conv carry and SSM state. Caches are updated in place; ``prefill`` fills
+an empty cache (or a batch-row view of one, see ``cache_rows``).
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm)
 
@@ -52,19 +55,22 @@ def _plan(cfg: ArchConfig):
 
 def check_supported(cfg: ArchConfig):
     """Raise for what this port cannot build yet, naming its ROADMAP item."""
-    bad = sorted(set(cfg.layer_kinds()) - {"G", "L"})
+    kinds = set(cfg.layer_kinds())
+    bad = sorted(kinds - {"G", "L", "M"})
     if bad:
-        what = {"M": "Mamba2 layers with the ssd kernel",
-                "R": "RG-LRU layers"}
+        what = {"R": "RG-LRU layers"}
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported yet (ROADMAP "
             f"queue 1: {', '.join(what.get(b, b) for b in bad)})")
     if cfg.moe is not None:
         raise A._not_ported("MoE")
-    if cfg.attention is None or cfg.attention.kind != "gqa":
-        raise A._not_ported("MLA")
-    if cfg.kv_quant:
-        raise A._not_ported("kv_quant")
+    if kinds & {"G", "L"}:
+        if cfg.attention is None or cfg.attention.kind != "gqa":
+            raise A._not_ported("MLA")
+        if cfg.kv_quant:
+            raise A._not_ported("kv_quant")
+    if "M" in kinds:
+        SSM.check_supported(cfg)
     if cfg.frontend is not None:
         raise A._not_ported("frontend archs")
 
@@ -73,9 +79,11 @@ def check_supported(cfg: ArchConfig):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ArchConfig, dtype):
+def _init_layer(gen, cfg: ArchConfig, kind: str, dtype):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=gen.device)
+    if kind == "M":
+        return {"ln1": zeros(), "mamba": SSM.init_mamba2(gen, cfg, dtype)}
     return {"ln1": zeros(), "attn": A.init_attention(gen, cfg, dtype),
             "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
 
@@ -97,8 +105,8 @@ def init_params(cfg: ArchConfig, *, seed: int, device=None):
                                         device=dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, vp, dtype)
-    params["layers"] = [_init_layer(gen, cfg, dtype)
-                        for _ in range(cfg.n_layers)]
+    params["layers"] = [_init_layer(gen, cfg, kind, dtype)
+                        for kind in cfg.layer_kinds()]
     return params
 
 
@@ -109,6 +117,9 @@ def init_params(cfg: ArchConfig, *, seed: int, device=None):
 def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
                  cache_pos=None):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    if kind == "M":
+        out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache)
+        return x + out
     att_out, cache = A.apply_attention(p["attn"], cfg, h, pos_q,
                                        is_local=(kind == "L"), cache=cache,
                                        cache_pos=cache_pos)
@@ -165,15 +176,22 @@ def forward(params, cfg: ArchConfig, tokens):
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
-    """Empty KV caches (``dtype``: a torch dtype, default ``cfg.dtype``)
-    for ``batch`` independent rows on ``device`` (None means CUDA)."""
+    """Empty caches (``dtype``: a torch dtype, default ``cfg.dtype``) for
+    ``batch`` independent rows on ``device`` (None means CUDA): K/V for an
+    attention layer, the conv carry (in ``dtype``) and the float32 SSM
+    state for a Mamba2 layer."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
+
+    def layer(kind):
+        if kind == "M":
+            return SSM.init_mamba2_cache(cfg, batch, dtype, device=dev)
+        return A.init_attention_cache(cfg, kind == "L", batch, max_len,
+                                      dtype, device=dev)
+
     return {"pos": torch.zeros((batch,), dtype=torch.long, device=dev),
-            "layers": [A.init_attention_cache(cfg, kind == "L", batch,
-                                              max_len, dtype, device=dev)
-                       for kind in cfg.layer_kinds()]}
+            "layers": [layer(kind) for kind in cfg.layer_kinds()]}
 
 
 def cache_rows(cache, start: int, stop: int):
@@ -188,15 +206,22 @@ def prefill(params, cfg: ArchConfig, tokens, cache):
     """Run the prompt (B, S) through an empty cache; returns (logits, cache).
 
     The queries sit at positions 0..S-1 (prefill from zero, as in the JAX
-    package), so every layer's attention is one flash-attention launch.
-    A reused cache (a retired slot of the serving engine) starts over:
-    its positions are reset, and its old K/V is masked as unwritten.
+    package), so every attention layer is one flash-attention launch and
+    every Mamba2 layer one SSD-kernel launch. A reused cache (a retired
+    slot of the serving engine) starts over: its positions are reset, its
+    old K/V is masked as unwritten, and its conv carries and SSM states
+    are zeroed.
     """
     x = _embed_tokens(params, cfg, tokens)
     S = x.shape[1]
     pos_q = torch.arange(S, device=x.device)
     cache["pos"].zero_()
-    # a one-token prompt takes the decode branch at position 0
+    for kind, c in zip(cfg.layer_kinds(), cache["layers"]):
+        if kind == "M":
+            c["conv"].zero_()
+            c["state"].zero_()
+    # a one-token prompt takes the decode branch at position 0 (from the
+    # zeroed state in a Mamba2 layer)
     x = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"])
     cache["pos"].fill_(S)
     return _logits(params, cfg, x), cache

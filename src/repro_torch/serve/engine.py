@@ -1,4 +1,4 @@
-"""Continuous-batching inference engine over a fixed KV-cache slot pool.
+"""Continuous-batching inference engine over a fixed cache slot pool.
 
 The port of ``src/repro/serve/engine.py:62-412``. ``ServeEngine.run``
 serves an open-loop request list: requests join free slots at decode-step
@@ -11,9 +11,10 @@ batch-1 ``decode_step`` over a stacked cache; here the stacked cache IS a
 batch-``n_slots`` cache (``TF.init_cache(cfg, n_slots, max_seq_len)``)
 whose ``pos`` holds one position per slot, and one ``decode_step`` call
 decodes every slot: each writes its K/V at its own ring index and gets its
-own mask. A prefill writes straight into its slot's rows of the stacked
-cache through a view (``TF.cache_rows``), in place, where JAX donated the
-buffers: no second copy of a gigabyte-sized slot. Slot rows are
+own mask, or updates its own Mamba2 state. A prefill writes straight into
+its slot's rows of the stacked cache through a view (``TF.cache_rows``),
+in place, where JAX donated the buffers: no second copy of a
+gigabyte-sized slot; it zeroes a reused slot's Mamba2 state first. Slot rows are
 independent, so a slot's tokens are those of the per-request
 ``greedy_decode``; on the card the batched and single-row products may
 round differently in bfloat16.

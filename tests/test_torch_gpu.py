@@ -11,7 +11,10 @@ float32 and 1e-2 in bfloat16, quantize codes exactly equal, dequant_mean
 1e-6. Flash attention: 1e-5 in float32 (the kernel sums the same float32
 products in another order); in bfloat16 the tolerance of
 ``kernels/flash_attention/ref.py`` (elementwise 5e-3 + 1e-2 |ref|, each
-query row of each head within 1e-2 of its norm).
+query row of each head within 1e-2 of its norm). The SSD scan: the JAX
+package's own tolerances (``tests/test_ssd_kernel.py``), 3e-4 in float32
+for y and the final state, 5e-2 for y from bfloat16 inputs (y is rounded
+to bfloat16).
 """
 import numpy as np
 import pytest
@@ -27,6 +30,8 @@ from repro_torch.kernels.quantize import ops as TQ
 from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
                                                 quantize_kernel)
 from repro_torch.kernels.quantize.ref import dequant_mean_ref, quantize_ref
+from repro_torch.kernels.ssd import kernel as SSD
+from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_ref
 
 pytestmark = pytest.mark.gpu
 
@@ -134,6 +139,74 @@ def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
                       dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
     with pytest.raises(ValueError):
         FA.flash_attention(off, off, off)
+
+
+def _ssd_inputs(dev, b, S, H, P, G, N, dtype=torch.float32, seed=3):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
+    x = (rn(b, S, H, P) * 0.5).to(dtype)
+    dt = torch.nn.functional.softplus(rn(b, S, H)) * 0.1
+    A = -torch.exp(rn(H) * 0.3)
+    B = (rn(b, S, G, N) * 0.3).to(dtype)
+    C = (rn(b, S, G, N) * 0.3).to(dtype)
+    return x, dt, A, B, C
+
+
+# (b, S, H, P, G, N, chunk)
+SSD_CASES = [
+    (1, 128, 2, 32, 1, 16, 64),
+    (2, 256, 4, 64, 1, 32, 128),
+    (2, 256, 4, 64, 2, 32, 64),        # grouped B/C
+    (1, 200, 4, 32, 2, 16, 64),        # ragged: a 8-row last chunk
+    (1, 37, 2, 16, 1, 32, 256),        # one chunk shorter than a tile
+    (1, 1000, 80, 64, 1, 128, 256),    # mamba2-2.7b's heads, 232-row tail
+]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_matches_plain(cuda, case, dtype):
+    b, S, H, P, G, N, chunk = case
+    x, dt, A, B, C = _ssd_inputs(cuda, b, S, H, P, G, N, dtype)
+    before = SSD.ssd.launches
+    y, st = SSD.ssd(x, dt, A, B, C, chunk=chunk)
+    torch.cuda.synchronize()
+    assert SSD.ssd.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert st.dtype == torch.float32 and st.shape == (b, H, P, N)
+    yr, sr = ssd_chunked_ref(x, dt, A, B, C, chunk)
+    tol = 3e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), yr, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
+
+
+def test_ssd_plain_versions_agree_on_the_card(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 200, 4, 32, 2, 16)
+    yc, sc = ssd_chunked_ref(x, dt, A, B, C, 64)
+    yr, sr = ssd_ref(x, dt, A, B, C)
+    torch.testing.assert_close(yc, yr, atol=3e-4, rtol=3e-4)
+    torch.testing.assert_close(sc, sr, atol=3e-4, rtol=3e-4)
+
+
+def test_ssd_raises_on_unsupported_inputs(cuda):
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 4, 32, 2, 16)
+    cpu = [t.cpu() for t in (x, dt, A, B, C)]
+    with pytest.raises(ValueError):                      # CPU tensors
+        SSD.ssd(*cpu)
+    with pytest.raises(ValueError):                      # not contiguous
+        SSD.ssd(x.transpose(1, 2).contiguous().transpose(1, 2), dt, A, B, C)
+    with pytest.raises(ValueError):                      # dt of another S
+        SSD.ssd(x, dt[:, :32].contiguous(), A, B, C)
+    with pytest.raises(ValueError):                      # 3 groups, 4 heads
+        B3 = torch.zeros(1, 64, 3, 16, device=cuda)
+        SSD.ssd(x, dt, A, B3, B3)
+    with pytest.raises(ValueError):                      # N = 24
+        B24 = torch.zeros(1, 64, 2, 24, device=cuda)
+        SSD.ssd(x, dt, A, B24, B24)
+    with pytest.raises(ValueError):                      # chunk > 256
+        SSD.ssd(*_ssd_inputs(cuda, 1, 300, 2, 16, 1, 16), chunk=300)
+    with pytest.raises(TypeError):                       # mixed types
+        SSD.ssd(x, dt, A, B.bfloat16(), C)
 
 
 def test_simulator_runs_through_the_kernels(cuda):

@@ -26,6 +26,7 @@ from repro_torch.kernels.quantize import ops as TQ
 from repro_torch.kernels.quantize import ref as TQR
 from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
                                                 quantize_kernel)
+from repro_torch.kernels.ssd import kernel as SSD
 
 _DT = {"float32": (jnp.float32, torch.float32),
        "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -107,9 +108,13 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
     with pytest.raises(ValueError):
         FA.flash_attention(torch.zeros(1, 8, 2, 64), torch.zeros(1, 8, 2, 64),
                            torch.zeros(1, 8, 2, 64))
+    with pytest.raises(ValueError):
+        SSD.ssd(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
+                torch.zeros(2), torch.zeros(1, 8, 1, 16),
+                torch.zeros(1, 8, 1, 16))
     assert K.launch_counts() == {"fused_sgd_update": 0, "quantize_kernel": 0,
                                  "dequant_mean_kernel": 0,
-                                 "flash_attention": 0}
+                                 "flash_attention": 0, "ssd": 0}
 
 
 def _quant_inputs(N=4, M=1000, seed=0):

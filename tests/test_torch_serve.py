@@ -218,6 +218,58 @@ def test_ledger_span_tree_matches_jax(served):
     assert len(tt.find("decode_step")) == report.n_steps
 
 
+@pytest.fixture(scope="module")
+def served_mamba():
+    """mamba2-2.7b SMOKE in float32, one set of params in both packages."""
+    jcfg = jax_get_arch("mamba2-2.7b", smoke=True).replace(dtype="float32")
+    tcfg = get_arch("mamba2-2.7b", smoke=True).replace(dtype="float32")
+    jp = JTF.init_params(jax.random.key(0), jcfg)
+    tp = transformer_params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                     "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_mamba2_engine_ledger_and_tokens_identical_to_jax(served_mamba):
+    """Mamba2 behind both engines, slots reused. Prompts stay within one
+    chunk (64 tokens): the JAX model's chunked scan refuses longer prompts
+    that are not a multiple of it (tests/test_torch_ssm.py holds those
+    against JAX's token-by-token decode)."""
+    jcfg, tcfg, jp, tp = served_mamba
+    kw = dict(_traffic_kw(seed=4), max_prompt_len=64)
+    jeng = JServeEngine(jcfg, jp, scheduler=JSchedulerConfig(**SCHED),
+                        device=JDeviceModel(**PRICES))
+    teng = ServeEngine(tcfg, tp, scheduler=SchedulerConfig(**SCHED),
+                       device=DeviceModel(**PRICES))
+    assert teng.decode_step_s == jeng.decode_step_s
+    jreqs = j_generate(JTrafficConfig(**kw), jcfg.vocab_size)
+    treqs = generate_requests(TrafficConfig(**kw), tcfg.vocab_size)
+    # a one-token prompt arriving after the rest drained: a reused slot
+    late = max(r.arrival_s for r in treqs) + 1.0
+    prompt = np.array([7], np.int32)
+    jreqs.append(JRequest(id=len(jreqs), arrival_s=late, prompt=prompt,
+                          n_out=4))
+    treqs.append(Request(id=len(treqs), arrival_s=late, prompt=prompt,
+                         n_out=4))
+    jrep = jeng.run(jreqs, registry=JRegistry())
+    trep = teng.run(treqs, registry=MetricsRegistry())
+    assert len(trep.completed) == len(treqs) == 10
+    assert trep.trace_keys() == jrep.trace_keys()
+    assert (trep.n_steps, trep.n_prefills, trep.makespan_s) == \
+        (jrep.n_steps, jrep.n_prefills, jrep.makespan_s)
+    assert len({r.slot for r in trep.records}) < len(trep.records)
+    for r, rec in zip(treqs, trep.records):
+        want = greedy_decode(tp, tcfg, torch.from_numpy(r.prompt[None])
+                             .long(), r.n_out, SCHED["max_seq_len"])[0]
+        assert rec.tokens == want[0].tolist(), f"req {r.id} slot {rec.slot}"
+
+
+def test_mamba2_serve_cli_smoke_on_cpu():
+    report = serve_cli.main(["--arch", "mamba2-2.7b", "--smoke", "--device",
+                             "cpu", "--requests", "5", "--slots", "2"])
+    assert len(report.completed) == 5 and report.n_prefills == 5
+    assert report.makespan_s > 0 and report.modeled_tok_s > 0
+
+
 def test_device_model_prices_one_chip_only():
     with pytest.raises(NotImplementedError, match="link_model"):
         DeviceModel(n_chips=4)

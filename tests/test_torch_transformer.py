@@ -8,6 +8,8 @@ function. Logits agree to 1e-4 (float32 matmuls, softmax and rsqrt in
 another order through two layers; the logits are at most 30 after the
 final softcap), and greedy tokens are equal.
 """
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -149,7 +151,7 @@ def test_default_device_needs_cuda():
         TTF.init_cache(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("name", ["mamba2-2.7b", "deepseek-v2-236b",
+@pytest.mark.parametrize("name", ["deepseek-v2-236b",
                                   "phi3.5-moe-42b-a6.6b", "internvl2-2b",
                                   "recurrentgemma-2b"])
 def test_unported_archs_raise_naming_their_roadmap_item(name):
@@ -160,14 +162,23 @@ def test_unported_archs_raise_naming_their_roadmap_item(name):
 
 
 def test_unported_layer_kinds_raise():
+    """RG-LRU layers, and Mamba2 with grouped B/C, which the JAX model
+    refuses too (``src/repro/models/ssm.py:111-114``)."""
     cfg = get_arch("gemma2-27b", smoke=True)
-    for bad in (cfg.replace(block_pattern=("M",)),
-                cfg.replace(block_pattern=("G", "R"))):
+    mamba = get_arch("mamba2-2.7b", smoke=True)
+    grouped = mamba.replace(ssm=dataclasses.replace(mamba.ssm, n_groups=2))
+    for bad in (grouped, cfg.replace(block_pattern=("G", "R"))):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TTF.init_params(bad, seed=0, device="cpu")
+    jgrouped = jax_get_arch("mamba2-2.7b", smoke=True)
+    jgrouped = jgrouped.replace(ssm=dataclasses.replace(jgrouped.ssm,
+                                                        n_groups=2))
+    with pytest.raises(NotImplementedError):
+        JTF.forward(JTF.init_params(jax.random.key(0), jgrouped), jgrouped,
+                    jnp.zeros((1, 64), jnp.int32))
 
 
-@pytest.mark.parametrize("name", ARCHS)
+@pytest.mark.parametrize("name", ARCHS + ["mamba2-2.7b"])
 @pytest.mark.parametrize("smoke", [False, True])
 def test_flops_model_equals_jax(name, smoke):
     jcfg, tcfg = jax_get_arch(name, smoke=smoke), get_arch(name, smoke=smoke)
