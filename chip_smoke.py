@@ -33,14 +33,19 @@ failure propagates, so the script exits non-zero and prints no result.
   5. Flash attention against its plain version on the card at gemma2-27b's
      layer shapes, q (1, 4608, 32, 128) and k/v (1, 4608, 16, 128) in
      bfloat16 — local (window 4096, softcap 50), global (causal, softcap
-     50), causal without softcap — plus a ragged Sq = Sk = 1000 shape and a
-     small float32 shape. bf16 is held to ``ref.py``'s tolerance
-     (elementwise 5e-3 absolute plus 1e-2 relative, and each query row of
-     each head to 1e-2 of its norm), float32 to 1e-5 absolute plus as much
-     relative; timed like phase 3, bound by its operations
-     (4·B·H·D·pairs over 989 TFLOP/s bf16, 67 TFLOP/s float32) or bytes,
-     and at the causal shape beside ``scaled_dot_product_attention``
-     (held to the plain version first; the port never calls it).
+     50), causal without softcap — qwen3-14b's causal layer (1, 4608,
+     40/8, 128), a D = 256 causal shape (1, 4096, 16/8, 256), a ragged
+     Sq = Sk = 1000 shape and a small float32 shape; with a softcap q is
+     scaled by cap / 4, so that the scores reach about +-cap, and the
+     cap-free attention must fail the tolerance (a control). bf16 is held to
+     ``ref.py``'s tolerance (elementwise 5e-3 absolute plus 1e-2 relative,
+     and each query row of each head to 1e-2 of its norm), float32 to 1e-5
+     absolute plus as much relative; timed like phase 3, bound by its
+     operations (4·B·H·D·pairs over 989 TFLOP/s bf16, 67 TFLOP/s float32)
+     or bytes, printed with TFLOP/s, the share of the bound and the
+     special-function (MUFU) floor, and at the causal shapes beside
+     ``scaled_dot_product_attention`` (held to the plain version first;
+     the port never calls it).
   6. Serving, small: the card's run of gemma2-27b's SMOKE config (2 layers
      L+G, window 64, float32) against the CPU run on the same weights, one
      80-token prompt through ``prefill`` and 8 decode steps, logits to
@@ -94,6 +99,10 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOPS = 67e12           # H100 SXM float32, outside the tensor cores
 BF16_FLOPS = 989e12         # H100 SXM bf16 dense, tensor cores
+# H100 SXM special-function rate: 16 ex2/tanh per clock per SM, at the
+# clock the bf16 peak is quoted for (989 TFLOP/s = 132 SMs x 4,096 FLOP per
+# clock x 1.83 GHz), so the two floors compare clock for clock
+MUFU_OPS_PER_S = 132 * 16 * 1.83e9
 TRAIN_KERNELS = ("fused_sgd_update", "quantize_kernel", "dequant_mean_kernel")
 # A greedy pick whose top-2 logit gap is under this may flip between the
 # engine's 4-slot decode and the single-request reference: their bfloat16
@@ -458,17 +467,24 @@ def check_flash(torch):
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
-    # label: (B, S, H, KV, D, dtype, window, softcap)
+    # label: (B, S, H, KV, D, dtype, window, softcap); gemma2-27b's layers
+    # at its 4,608-token prefill, qwen3-14b's (40/8 heads) causal layer at
+    # the same length, one D = 256 shape, a ragged and a float32 shape
     cases = {
         "local": (1, 4608, 32, 16, 128, bf, 4096, 50.0),
         "global": (1, 4608, 32, 16, 128, bf, None, 50.0),
         "causal": (1, 4608, 32, 16, 128, bf, None, None),
+        "qwen3": (1, 4608, 40, 8, 128, bf, None, None),
+        "d256": (1, 4096, 16, 8, 256, bf, None, None),
         "ragged": (1, 1000, 32, 16, 128, bf, None, 50.0),
         "f32": (2, 300, 8, 4, 128, f32, 128, 50.0),
     }
     rows = {}
     for label, (B, S, H, KV, D, dt, window, cap) in cases.items():
-        q = torch.randn((B, S, H, D), generator=g, device=dev).to(dt)
+        # with a softcap, q is scaled by cap / 4 so that the scores spread to
+        # about +-cap, where cap * tanh(s / cap) bends away from s
+        q = torch.randn((B, S, H, D), generator=g, device=dev)
+        q = (q * (cap / 4 if cap else 1.0)).to(dt)
         k = torch.randn((B, S, KV, D), generator=g, device=dev).to(dt)
         v = torch.randn((B, S, KV, D), generator=g, device=dev).to(dt)
         kern = lambda: flash_attention(q, k, v, window=window, softcap=cap)
@@ -476,20 +492,34 @@ def check_flash(torch):
                                       softcap=cap).to(dt)
         out, ref = kern(), plain()
         torch.cuda.synchronize()
-        if dt == bf:
-            # ref.py's bf16 tolerance: elementwise |d| <= 5e-3 + 1e-2 |ref|
-            # and per (row, head) ||d|| <= 1e-2 ||ref||, as ratios <= 1
-            err, elem, row = bf16_mismatch(out, ref)
-            tol_txt = f"elementwise {elem:.3f}, per-row {row:.3f} of tol"
-        else:
+
+        def mismatch(ref):
+            if dt == bf:
+                # ref.py's bf16 tolerance: elementwise |d| <= 5e-3 + 1e-2
+                # |ref| and per (row, head) ||d|| <= 1e-2 ||ref||, as ratios
+                err, elem, row = bf16_mismatch(out, ref)
+                return (err, elem, row, f"elementwise {elem:.3f}, per-row "
+                        f"{row:.3f} of tol")
             # f32: the same float32 products summed in another order
             diff = (out.float() - ref.float()).abs()
-            err, row = float(diff.max()), None
             elem = float((diff / (1e-5 + 1e-5 * ref.abs())).max())
-            tol_txt = f"{elem:.3f} of 1e-5 + 1e-5 |ref|"
+            return (float(diff.max()), elem, None,
+                    f"{elem:.3f} of 1e-5 + 1e-5 |ref|")
+
+        err, elem, row, tol_txt = mismatch(ref)
         if not (elem <= 1.0 and (row is None or row <= 1.0)):
             raise AssertionError(f"flash_attention {label}: max err {err}, "
                                  f"{tol_txt}")
+        if cap:
+            # control: the cap-free attention must fail the same tolerance,
+            # or these inputs could not tell a missing softcap
+            c_err, c_elem, c_row, c_txt = mismatch(
+                attention_ref(q, k, v, window=window))
+            log(f"[flash] {label}: the cap-free attention is off by max err "
+                f"{c_err:.3g}, {c_txt} (must exceed it)")
+            if c_elem <= 1.0 and (c_row is None or c_row <= 1.0):
+                raise AssertionError(f"flash_attention {label}: the softcap "
+                                     f"control passed ({c_txt})")
         lib, lib_err = None, None
         if cap is None and window is None:
             lib_out = sdpa_library(torch, q, k, v)
@@ -514,18 +544,24 @@ def check_flash(torch):
         n_bytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
         bms, by = bound_ms(n_bytes, n_flops,
                            BF16_FLOPS if dt == bf else F32_FLOPS)
+        # special-function floor: one exp2 per visible pair and head, one
+        # more (tanh) with a softcap, at 16 per clock per SM; logged only,
+        # as it rests on an assumed rate
+        mufu = B * H * pairs * (2 if cap else 1) / MUFU_OPS_PER_S * 1e3
         rows[label] = {"shape": [B, S, H, KV, D], "dtype": str(dt),
                        "window": window, "softcap": cap, "ms": ms,
                        "plain_ms": plain_ms, "call_ms": one,
                        "library_ms": lib, "bound_ms": bms, "bound_by": by,
+                       "of_bound": bms / ms,
                        "max_abs_err": err, "elem_of_tol": elem,
                        "row_of_tol": row, "tflops": n_flops / ms / 1e9}
         lib_txt = "-" if lib is None else f"{lib:.3f} ms (err {lib_err:.3g})"
-        log(f"[flash] {label:6s} {tuple(q.shape)} {dt} window {window} "
-            f"softcap {cap}: device {ms:.3f} ms, one call {one:.3f} ms, "
-            f"plain {plain_ms:.3f} ms, library {lib_txt}, bound "
-            f"{bms:.4f} ms ({by}), {n_flops / ms / 1e9:.1f} TFLOP/s; "
-            f"max_abs_err {err:.3g}, {tol_txt}")
+        log(f"[flash] {label:6s} {tuple(q.shape)} kv {KV} {dt} window "
+            f"{window} softcap {cap}: device {ms:.4f} ms, one call "
+            f"{one:.4f} ms, plain {plain_ms:.3f} ms, library {lib_txt}, "
+            f"bound {bms:.4f} ms ({by}; MUFU floor {mufu:.4f} ms), "
+            f"{n_flops / ms / 1e9:.1f} TFLOP/s = {100 * bms / ms:.1f}% of "
+            f"the bound; max_abs_err {err:.3g}, {tol_txt}")
         del q, k, v
     torch.cuda.empty_cache()
     return rows

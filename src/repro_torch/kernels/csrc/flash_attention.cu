@@ -6,39 +6,65 @@
 // sequence) and head h (kv head h / (H / KV)):
 //
 //   s    = scale * (q . k)                      float32
-//   s    = cap * tanhf(s / cap)                 when cap > 0
+//   s    = cap * tanh(s / cap)                  when cap > 0
 //   s    = -1e38 where not (kpos <= qpos       when causal
 //                          and kpos > qpos - window   when window > 0
 //                          and kpos < Sk)
 //   m, l, acc: online softmax over kv tiles, f32 running max / sum / output
 //   o    = acc / max(l, 1e-30)                  cast to q's type
 //
-// The masked value is the Pallas kernel's finite -1e38, never -inf: a row
-// whose tiles so far were all masked has m = -1e38 and exp(s - m) = 1, and
-// the first tile with a real score resets it through exp(-1e38 - m) = 0,
-// where -inf would give inf - inf = NaN. Kv tiles that no query of the
-// block can see are skipped; the result is the same, since every causal
-// row holds its diagonal and a skipped tile would only add exact zeros or
-// be reset. Unlike the Pallas kernel, any Sq <= Sk is taken: the ragged
-// edges (query rows >= Sq, kv rows >= Sk) are masked here.
+// The masked value is the Pallas kernel's finite -1e38, never -inf, so no
+// inf - inf can arise. Kv tiles that no query of the block can see are
+// skipped; the result is the same, since every row holds a visible key
+// (its diagonal when causal) and a tile a row cannot see adds exact zeros
+// or is reset by the row's first visible key.
+// Unlike the Pallas kernel, any Sq <= Sk is taken: the ragged edges (query
+// rows >= Sq, kv rows >= Sk) are masked here.
 //
 // Bound: operations. 4 * D FLOPs per visible (q, k) pair against 2 bytes
 // per element of q, k, v, o moved once; at gemma2-27b's prefill (4,608
 // tokens, 32 heads, D = 128) that is 174 GFLOP against 113 MB, far past
-// the card's balance point.
+// the card's balance point: 0.176 ms at 989 TFLOP/s (bf16 dense). A second
+// floor is the special-function unit (MUFU, 16 operations per clock per
+// SM): one exp2 per visible pair and head, and one tanh more with a
+// softcap. At that prefill that is 0.08 ms without a softcap and 0.16 ms
+// with one, nearly the tensor-core bound; reaching the bound needs the
+// softmax to run while the tensor cores work.
 //
 // Two kernels, picked by the input type:
 //
-// bfloat16 (the serving path): tensor cores through mma.sync m16n8k16
-// (bf16 in, float32 accumulate), FlashAttention-2 style. A block is 4 warps
-// and 64 query rows, 16 per warp; q and k tiles are staged row-major in
-// shared memory and v transposed (d-major), rows padded by 8 elements so
-// every fragment load hits 32 distinct banks. Each warp keeps its 16 x 64
-// scores and its 16 x D output accumulator in registers (the mma C layout:
-// a thread holds rows g and g + 8 of its quad), does the softmax there
-// (row max and sum across the quad's 4 lanes by shuffles), and feeds the
-// probabilities, rounded to bf16, straight back as the A operand of P.V.
-// Shared memory 53 KB at D = 128: four blocks per SM.
+// bfloat16 (the serving path), for Hopper's TMA and wgmma:
+//   - Loads: q, k, v and o are 4-D TMA tensor maps over (D, heads, S, B)
+//     with boxes of (64 columns = 128 bytes, 1, rows, 1) and the 128-byte
+//     swizzle that wgmma reads; rows past S load as zeros and are not
+//     stored, and never come from the next batch row. The launcher builds
+//     the maps (cuTensorMapEncodeTiled, found through the runtime).
+//   - Warp specialisation: warpgroup 0 is the producer, one thread of
+//     which loads Q once and streams K and V tiles through a 2-stage ring
+//     (full / empty mbarriers per stage, K and V apart so Q·Kᵀ can start
+//     before V lands). One or two consumer warpgroups own 64 query rows
+//     each; with two, setmaxnreg moves registers from the producer (24)
+//     to the consumers (240).
+//   - Products: S = Q·Kᵀ as wgmma m64nBKk16 with both operands K-major in
+//     shared memory; O += P·V with P from registers (the S accumulator
+//     rounded to bf16 is the A fragment) and V read MN-major through the
+//     descriptor's transpose bit. Q·Kᵀ of tile t and P·V of tile t - 1
+//     are in flight together, and the two consumers take turns to start
+//     them (ping-pong), so one's softmax runs under the other's products.
+//   - Softmax: ex2.approx fed by one fmaf that takes the kept value to log2
+//     units (|scale|·log2e, or cap·log2e after one tanh.approx with a
+//     softcap; the running max stays unscaled, and a scale < 0 negates Q
+//     once in shared memory), the mask only on tiles that cross the
+//     diagonal, the window's lower edge or Sk. A row whose keys so far were
+//     all masked keeps p = 0.
+//   - Tiles: BQ = 64 per consumer, BK = 128 / 144 / 64 at D = 64 / 128 /
+//     256, sized so that a consumer's S, P and O fragments stay in
+//     registers without spilling or serialising the wgmmas (see Tiles).
+//     D = 256 has one consumer (its 64 x 256 output alone is 128
+//     registers a thread).
+//   - Order: query tiles heaviest first (causal), so the short ones fill
+//     the tail. Epilogue: o / l to bf16 in the warpgroup's Q rows of
+//     shared memory, then one TMA store per 64 columns.
 //
 // float32: CUDA-core FMAs, so the result matches float32 math to 1e-5
 // (tensor cores would round to tf32 or bf16). 256 threads per block of 64
@@ -47,31 +73,34 @@
 // columns per thread in registers. 116 KB of shared memory at D = 128.
 //
 // Shared memory above 48 KB is set with cudaFuncSetAttribute before each
-// launch. No load is pipelined with compute yet (cp.async / TMA are later
-// work).
+// launch. Every fused multiply-add is an explicit fmaf: the library is
+// built with -fmad=false for the quantize kernel's exact codes.
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int BQ = 64;  // query rows per block
-constexpr int BK = 64;  // kv rows per tile
+constexpr int BQ = 64;  // float32 kernel: query rows per block
+constexpr int BK = 64;  // float32 kernel: kv rows per tile
 constexpr float NEG_INF = -1.0e38f;
 
 struct TileRange {
   int t_begin, t_end;
 };
 
-// kv tiles some query of the block [q0, q0 + BQ) can see
-__device__ __forceinline__ TileRange tile_range(int q0, int Sq, int Sk,
-                                                int causal, int window) {
+// kv tiles of bk rows that some query of the block [q0, q0 + bq) can see
+__device__ __forceinline__ TileRange tile_range(int q0, int bq, int bk,
+                                                int Sq, int Sk, int causal,
+                                                int window) {
   const int seq_off = Sk - Sq;
   const int q_first = q0 + seq_off;
-  const int q_last = min(q0 + BQ, Sq) - 1 + seq_off;
+  const int q_last = min(q0 + bq, Sq) - 1 + seq_off;
   const int k_end = causal ? min(Sk, q_last + 1) : Sk;
   const int k_begin = window > 0 ? max(0, q_first - window + 1) : 0;
-  return {k_begin / BK, (k_end + BK - 1) / BK};
+  return {k_begin / bk, (k_end + bk - 1) / bk};
 }
 
 __device__ __forceinline__ float score(float dot, float scale, float softcap,
@@ -86,19 +115,152 @@ __device__ __forceinline__ float score(float dot, float scale, float softcap,
 }
 
 // ---------------------------------------------------------------------------
-// bfloat16: tensor cores (mma.sync m16n8k16)
+// bfloat16: TMA ring, wgmma, warp-specialised
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_THREADS = 128;  // 4 warps x 16 query rows
+constexpr int WG = 128;     // threads per warpgroup
+constexpr int STAGES = 2;   // depth of the K / V ring
+constexpr float LOG2E = 1.4426950408889634f;
 
+// Per head dim: consumer warpgroups (64 query rows each) and kv rows per
+// tile, so that a consumer's S, P and O fragments stay in registers with
+// Q·Kᵀ and P·V in flight together. ptxas holds a 384-thread block to 168
+// registers a thread and lets a consumer past that (up to its setmaxnreg
+// 240) only when the wgmma operands in flight need more: at D = 128,
+// BK = 144 makes them S 72 + O 64 + P 36 = 172 and the consumer runs
+// without spills, where BK = 128 (160) spills and serialises its wgmmas.
+// D = 256 has one consumer: its 64 x 256 output alone is 128 registers.
 template <int D>
-constexpr size_t mma_smem_bytes() {
-  return sizeof(__nv_bfloat16) *
-         (size_t)(BQ * (D + 8) + BK * (D + 8) + D * (BK + 8));
+struct Tiles {
+  static constexpr int NC = D == 256 ? 1 : 2;
+  static constexpr int BK = D == 64 ? 128 : (D == 128 ? 144 : 64);
+  static constexpr int THREADS = WG * (1 + NC);  // producer warpgroup first
+  static constexpr int BQ = 64 * NC;             // query rows per block
+  static constexpr int CH = D / 64;              // 128-byte column boxes
+  static constexpr int ON = D < 128 ? D : 128;   // wgmma N of P·V
+  static constexpr int NO = D / ON;              // P·V wgmmas per k16 step
+  static constexpr int Q_WG = 64 * D * 2;        // bytes of one WG's Q rows
+  static constexpr int Q_BYTES = NC * Q_WG;
+  static constexpr int KV_BYTES = BK * D * 2;    // one K or V tile
+  static constexpr int SMEM = 1024 + Q_BYTES + 2 * STAGES * KV_BYTES;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+// spin until the phase of the given parity has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// box (64 columns, 1 head, rows, 1 batch row) of a (D, heads, S, B) map
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c, int h, int row,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(h),
+      "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c, int h, int row, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c), "r"(h), "r"(row), "r"(b)
+      : "memory");
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes
+__device__ __forceinline__ uint64_t sdesc(uint32_t addr, uint32_t lbo,
+                                          uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// keep the compiler from moving accesses of wgmma registers across a
+// wgmma or a wait
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// one special-function (MUFU) instruction each
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// relative error up to about 2^-11; with scores spread to the cap it stays
+// inside the bf16 tolerance (chip_smoke.py phase 5 and the GPU tests scale
+// q so that the scores reach about +-cap)
+__device__ __forceinline__ float tanh_mufu(float x) {
+  float y;
+  asm("tanh.approx.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -106,182 +268,472 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// d += a * b: A 16 x 16 bf16 (row), B 16 x 8 bf16 (col), d 16 x 8 float32
-__device__ __forceinline__ void mma_bf16(float d[4], uint32_t a0, uint32_t a1,
-                                         uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
+// wgmma_ss: d (+)= A·B, A (64 x 16) and B (N x 16) K-major in shared memory
+// (128-byte swizzle), m64nNk16, float32 accumulators; scale_d 0 overwrites
+// d. wgmma_rs: d += A·B, A from registers (bf16x2, the C layout of S), B
+// read MN-major through the descriptor's transpose bit.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
 }
 
-template <int D>
-__global__ void __launch_bounds__(MMA_THREADS)
-    flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q,
-                         const __nv_bfloat16* __restrict__ k,
-                         const __nv_bfloat16* __restrict__ v,
-                         __nv_bfloat16* __restrict__ o, int Sq, int Sk, int H,
-                         int KV, int causal, int window, float softcap,
-                         float scale) {
-  constexpr int QP = D + 8;   // row stride of Qs / Ks (elements)
-  constexpr int VP = BK + 8;  // row stride of Vt (elements)
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  constexpr int ND = D / 8;   // n-tiles of the output
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // BQ x QP
-  __nv_bfloat16* Ks = Qs + BQ * QP;                                 // BK x QP
-  __nv_bfloat16* Vt = Ks + BK * QP;                                 // D x VP
+__device__ __forceinline__ void wgmma_ss(float (&d)[72], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %74, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n144k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71},"
+      " %72, %73, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]),
+        "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, t4 = lane % 4;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
+                                         uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[64],
+                                         const uint32_t (&a)[4],
+                                         uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63},"
+      " {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// One tile's online softmax on a warpgroup's S accumulator (m64nNS·2).
+// s[4·n8 + 2·i + e] is row r0 + 8i, column n8·8 + 2·(lane % 4) + e. Kept
+// value x: the raw score s (Q was negated when scale < 0), or with a
+// softcap tanh(s·scale/cap) = tanh(s·c1); x·cs is the score in log2 units
+// (cs = |scale|·log2e = c1, or with a softcap cap·log2e = c2), so one fmaf
+// feeds each exp2. Masked keys get
+// NEG_INF. s returns p = 2^(x·cs - m·cs); m is the running max of x, l this
+// thread's partial row sums, alpha the factor for the output accumulated
+// so far. A row with no visible key yet keeps p = 0.
+template <bool CAP, int NS>
+__device__ __forceinline__ void softmax_tile(float (&s)[NS], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             bool mask, int kcol,
+                                             const int (&lo)[2],
+                                             const int (&hi)[2], float c1,
+                                             float c2) {
+  const float cs = CAP ? c2 : c1;
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    float x = CAP ? tanh_mufu(s[j] * c1) : s[j];
+    if (mask) {
+      const int i = (j >> 1) & 1;
+      const int kpos = kcol + (j >> 2) * 8 + (j & 1);
+      x = (kpos >= lo[i] && kpos < hi[i]) ? x : NEG_INF;
+    }
+    s[j] = x;
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+  }
+  float mref[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    mref[i] = mx[i] == NEG_INF ? 0.0f : mx[i] * cs;
+    alpha[i] = ex2(fmaf(m[i], cs, -mref[i]));
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < NS; ++j) {
+    const int i = (j >> 1) & 1;
+    s[j] = ex2(fmaf(s[j], cs, -mref[i]));
+    l[i] += s[j];
+  }
+}
+
+// the C layout of two neighbouring n8 blocks is the A layout of one k16
+template <int NS>
+__device__ __forceinline__ void pack_p(const float (&s)[NS],
+                                       uint32_t (&p)[NS / 8][4]) {
+#pragma unroll
+  for (int kk = 0; kk < NS / 8; ++kk) {
+    p[kk][0] = pack_bf16(s[8 * kk + 0], s[8 * kk + 1]);
+    p[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+    p[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+    p[kk][3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+  }
+}
+
+template <int D, bool CAP>
+__global__ void __launch_bounds__(Tiles<D>::THREADS, 1)
+    flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                           const __grid_constant__ CUtensorMap tm_k,
+                           const __grid_constant__ CUtensorMap tm_v,
+                           const __grid_constant__ CUtensorMap tm_o, int H,
+                           int Sq, int Sk, int group, int causal, int window,
+                           int negate_q, float c1, float c2) {
+  using T = Tiles<D>;
+  constexpr int NC = T::NC, BK = T::BK, CH = T::CH, ON = T::ON, NO = T::NO;
+  constexpr bool PINGPONG = NC == 2;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 4 * STAGES];
+
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t sQ = base;                       // [wg][chunk][64 rows][128 B]
+  const uint32_t sK = sQ + T::Q_BYTES;            // [stage][chunk][BK][128 B]
+  const uint32_t sV = sK + STAGES * T::KV_BYTES;  // [stage][chunk][BK][128 B]
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  auto full_k = [&](int s) { return smem_u32(&bars[1 + s]); };
+  auto full_v = [&](int s) { return smem_u32(&bars[1 + STAGES + s]); };
+  auto empty_k = [&](int s) { return smem_u32(&bars[1 + 2 * STAGES + s]); };
+  auto empty_v = [&](int s) { return smem_u32(&bars[1 + 3 * STAGES + s]); };
+
+  const int h = blockIdx.x % H;
+  const int b = blockIdx.x / H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * T::BQ;  // heaviest first
+  const int kvh = h / group;
   const int seq_off = Sk - Sq;
-  const int64_t q_row = (int64_t)H * D;
-  const int64_t kv_row = (int64_t)KV * D;
-  const __nv_bfloat16* qb = q + ((int64_t)b * Sq * H + h) * D;
-  const __nv_bfloat16* kb = k + ((int64_t)b * Sk * KV + kvh) * D;
-  const __nv_bfloat16* vb = v + ((int64_t)b * Sk * KV + kvh) * D;
-  __nv_bfloat16* ob = o + ((int64_t)b * Sq * H + h) * D;
-  const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
+  const TileRange tr = tile_range(q0, T::BQ, BK, Sq, Sk, causal, window);
 
-  for (int e = tid; e < BQ * CPR; e += MMA_THREADS) {
-    const int r = e / CPR, c = (e % CPR) * 8;
-    const int qi = q0 + r;
-    *reinterpret_cast<uint4*>(Qs + r * QP + c) =
-        qi < Sq ? *reinterpret_cast<const uint4*>(qb + qi * q_row + c) : zero;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full_k(s), 1);
+      mbar_init(full_v(s), 1);
+      mbar_init(empty_k(s), 4 * NC);  // lane 0 of every consumer warp
+      mbar_init(empty_v(s), 4 * NC);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
+  __syncthreads();
 
-  const int r0 = warp * 16 + g;  // this thread's rows: r0 and r0 + 8
-  const int qpos0 = q0 + r0 + seq_off;
-  float m_r[2] = {NEG_INF, NEG_INF};
-  float l_r[2] = {0.0f, 0.0f};  // this thread's partial row sums
-  float acc[ND][4];
-#pragma unroll
-  for (int n = 0; n < ND; ++n)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[n][i] = 0.0f;
-
-  const TileRange tr = tile_range(q0, Sq, Sk, causal, window);
-  for (int t = tr.t_begin; t < tr.t_end; ++t) {
-    const int k0 = t * BK;
-    __syncthreads();  // the previous tile's readers of Ks / Vt are done
-    for (int e = tid; e < BK * CPR; e += MMA_THREADS) {
-      const int r = e / CPR, c = (e % CPR) * 8;
-      const int ki = k0 + r;
-      *reinterpret_cast<uint4*>(Ks + r * QP + c) =
-          ki < Sk ? *reinterpret_cast<const uint4*>(kb + ki * kv_row + c)
-                  : zero;
-    }
-    // v transposed: neighbouring lanes take neighbouring kv rows, so the
-    // 2-byte stores into a d-major row land in distinct banks
-    for (int e = tid; e < BK * CPR; e += MMA_THREADS) {
-      const int r = e % BK, c = (e / BK) * 8;
-      const int ki = k0 + r;
-      uint4 val =
-          ki < Sk ? *reinterpret_cast<const uint4*>(vb + ki * kv_row + c)
-                  : zero;
-      const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(&val);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) Vt[(c + i) * VP + r] = x[i];
-    }
-    __syncthreads();
-
-    // scores of this warp's 16 rows against the tile's 64 kv rows
-    float s[BK / 8][4];
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[n][i] = 0.0f;
-#pragma unroll
-    for (int kk = 0; kk < D; kk += 16) {
-      const __nv_bfloat16* qa = Qs + r0 * QP + kk + t4 * 2;
-      const uint32_t a0 = ld32(qa), a1 = ld32(qa + 8 * QP);
-      const uint32_t a2 = ld32(qa + 8), a3 = ld32(qa + 8 * QP + 8);
-#pragma unroll
-      for (int n = 0; n < BK / 8; ++n) {
-        const __nv_bfloat16* kr = Ks + (n * 8 + g) * QP + kk + t4 * 2;
-        mma_bf16(s[n], a0, a1, a2, a3, ld32(kr), ld32(kr + 8));
+  // warp-uniform role, so that the compiler gives each branch the register
+  // budget its setmaxnreg sets
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / WG, 0);
+  if (wg == 0) {
+    // producer: one thread keeps Q and the K / V ring loaded
+    if constexpr (NC == 2) asm volatile("setmaxnreg.dec.sync.aligned.u32 24;");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, T::Q_BYTES);
+      for (int w = 0; w < NC; ++w)
+        for (int c = 0; c < CH; ++c)
+          tma_load(sQ + w * T::Q_WG + c * 64 * 128, &tm_q, bar_q, c * 64, h,
+                   q0 + 64 * w, b);
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int t = tr.t_begin; t < tr.t_end; ++t) {
+        mbar_wait(empty_k(stage), phase ^ 1);
+        mbar_expect_tx(full_k(stage), T::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load(sK + stage * T::KV_BYTES + c * BK * 128, &tm_k,
+                   full_k(stage), c * 64, kvh, t * BK, b);
+        mbar_wait(empty_v(stage), phase ^ 1);
+        mbar_expect_tx(full_v(stage), T::KV_BYTES);
+        for (int c = 0; c < CH; ++c)
+          tma_load(sV + stage * T::KV_BYTES + c * BK * 128, &tm_v,
+                   full_v(stage), c * 64, kvh, t * BK, b);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
       }
     }
+  } else {
+    if constexpr (NC == 2) asm volatile("setmaxnreg.inc.sync.aligned.u32 240;");
+    const int cw = wg - 1;  // consumer warpgroup: query rows 64·cw ..
+    const int tid = threadIdx.x - WG * wg;
+    const int warp = tid / 32, lane = tid % 32;
+    const int rw = warp * 16 + lane / 4;  // rows rw and rw + 8 of the WG
+    const uint32_t sQw = sQ + cw * T::Q_WG;
+    const int wq_first = q0 + 64 * cw;
+    const int wq_last = min(wq_first + 64, Sq) - 1;
+    const int kcol = 2 * (lane % 4);
+    int lo[2], hi[2];  // visible keys [lo, hi) of this thread's two rows
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qpos = wq_first + rw + 8 * i + seq_off;
+      hi[i] = causal ? min(Sk, qpos + 1) : Sk;
+      lo[i] = window > 0 ? qpos - window + 1 : 0;
+    }
+    // does the tile at k0 hold a key some row of this warpgroup must not
+    // see? Interior tiles skip the mask.
+    auto needs_mask = [&](int k0) {
+      return k0 + BK > Sk || (causal && k0 + BK - 1 > wq_first + seq_off) ||
+             (window > 0 && k0 < wq_last + seq_off - window + 1);
+    };
 
-    // online softmax on the registers: s[n][0..1] row r0, s[n][2..3] r0 + 8
-    float mx[2] = {NEG_INF, NEG_INF};
+    float o[NO][ON / 2];
 #pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
+    for (int n = 0; n < NO; ++n)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int kpos = k0 + n * 8 + t4 * 2 + (i & 1);
-        const int qpos = qpos0 + (i >> 1) * 8;
-        s[n][i] = score(s[n][i], scale, softcap, qpos, kpos, Sk, causal,
-                        window);
-        mx[i >> 1] = fmaxf(mx[i >> 1], s[n][i]);
-      }
-    }
-    float alpha[2];
+      for (int j = 0; j < ON / 2; ++j) o[n][j] = 0.0f;
+    float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.0f, 0.0f}, alpha[2];
+    float s[BK / 2];
 #pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 1));
-      mx[j] = fmaxf(mx[j], __shfl_xor_sync(0xffffffffu, mx[j], 2));
-      const float m_new = fmaxf(m_r[j], mx[j]);
-      alpha[j] = expf(m_r[j] - m_new);
-      m_r[j] = m_new;
-      l_r[j] *= alpha[j];
-    }
-#pragma unroll
-    for (int n = 0; n < BK / 8; ++n) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        s[n][i] = expf(s[n][i] - m_r[i >> 1]);
-        l_r[i >> 1] += s[n][i];
-      }
-    }
-#pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      acc[n][0] *= alpha[0];
-      acc[n][1] *= alpha[0];
-      acc[n][2] *= alpha[1];
-      acc[n][3] *= alpha[1];
-    }
+    for (int j = 0; j < BK / 2; ++j) s[j] = 0.0f;
+    uint32_t p[BK / 16][4];
 
-    // acc += P . V, P from the score registers (the C layout of two
-    // neighbouring n-tiles is the A layout of one k-step)
+    auto qk = [&](int stage) {  // s = Q · K_tileᵀ
+      reg_fence(s);
+      wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t a0 = pack_bf16(s[2 * j][0], s[2 * j][1]);
-      const uint32_t a1 = pack_bf16(s[2 * j][2], s[2 * j][3]);
-      const uint32_t a2 = pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]);
-      const uint32_t a3 = pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3]);
-#pragma unroll
-      for (int n = 0; n < ND; ++n) {
-        const __nv_bfloat16* vr = Vt + (n * 8 + g) * VP + 16 * j + t4 * 2;
-        mma_bf16(acc[n], a0, a1, a2, a3, ld32(vr), ld32(vr + 8));
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 columns = 32 bytes
+        wgmma_ss(s, sdesc(sQw + (kk / 4) * 64 * 128 + off, 16, 1024),
+                 sdesc(sK + stage * T::KV_BYTES + (kk / 4) * BK * 128 + off,
+                       16, 1024),
+                 kk > 0);
       }
-    }
-  }
+      wgmma_commit();
+    };
+    auto pv = [&](int stage) {  // o += P · V_tile
+#pragma unroll
+      for (int n = 0; n < NO; ++n) reg_fence(o[n]);
+      reg_fence(p);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j)
+#pragma unroll
+        for (int n = 0; n < NO; ++n)
+          wgmma_rs(o[n], p[j],
+                   sdesc(sV + stage * T::KV_BYTES + n * (ON / 64) * BK * 128 +
+                             j * 16 * 128,
+                         BK * 128, 1024));
+      wgmma_commit();
+    };
+    auto release = [&](uint32_t bar) {
+      if (lane == 0) mbar_arrive(bar);
+    };
+    auto advance = [](int& stage, uint32_t& phase) {
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+    };
 
+    // S of tile t and P·V of tile t - 1 are in flight together; with two
+    // consumers they take turns (named barriers 3 and 4) to start them, so
+    // one's softmax runs under the other's products. The first tile is
+    // peeled so that no wgmma or wait in the loop is conditional.
+    const int n_tiles = tr.t_end - tr.t_begin;
+    int stage = 0;
+    uint32_t phase = 0;
+    mbar_wait(bar_q, 0);
+    if (!CAP && negate_q) {
+      // scale < 0: flip the sign of this warpgroup's Q once, so that S holds
+      // -q·k and its max is the max of the scaled score
+      for (int e = tid; e < T::Q_WG / 16; e += WG) {
+        uint32_t w[4];
+        asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];"
+                     : "=r"(w[0]), "=r"(w[1]), "=r"(w[2]), "=r"(w[3])
+                     : "r"(sQw + 16 * e));
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};" ::"r"(
+                         sQw + 16 * e),
+                     "r"(w[0] ^ 0x80008000u), "r"(w[1] ^ 0x80008000u),
+                     "r"(w[2] ^ 0x80008000u), "r"(w[3] ^ 0x80008000u)
+                     : "memory");
+      }
+      asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+      bar_sync(1 + cw, WG);
+    }
+    if (PINGPONG && cw == 1) bar_arrive(3, 2 * WG);  // warpgroup 0 first
+    {
+      const int k0 = tr.t_begin * BK;
+      mbar_wait(full_k(stage), phase);
+      if (PINGPONG) bar_sync(3 + cw, 2 * WG);
+      qk(stage);
+      if (PINGPONG && !(cw == 1 && n_tiles == 1))
+        bar_arrive(4 - cw, 2 * WG);
+      wgmma_wait<0>();
+      reg_fence(s);
+      release(empty_k(stage));
+      softmax_tile<CAP>(s, m, l, alpha, needs_mask(k0), k0 + kcol, lo, hi,
+                        c1, c2);
+      pack_p(s, p);
+      advance(stage, phase);
+    }
+    int pstage = stage == 0 ? STAGES - 1 : stage - 1;
+    uint32_t pphase = stage == 0 ? phase ^ 1 : phase;
+    for (int i = 1; i < n_tiles; ++i) {
+      const int k0 = (tr.t_begin + i) * BK;
+      mbar_wait(full_k(stage), phase);
+      if (PINGPONG) bar_sync(3 + cw, 2 * WG);
+      qk(stage);
+      mbar_wait(full_v(pstage), pphase);
+      pv(pstage);
+      if (PINGPONG && !(cw == 1 && i == n_tiles - 1))
+        bar_arrive(4 - cw, 2 * WG);
+      wgmma_wait<1>();  // S done, P·V may still run
+      reg_fence(s);
+      release(empty_k(stage));
+      softmax_tile<CAP>(s, m, l, alpha, needs_mask(k0), k0 + kcol, lo, hi,
+                        c1, c2);
+      wgmma_wait<0>();
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    l_r[j] += __shfl_xor_sync(0xffffffffu, l_r[j], 1);
-    l_r[j] += __shfl_xor_sync(0xffffffffu, l_r[j], 2);
-  }
+      for (int n = 0; n < NO; ++n) reg_fence(o[n]);
+      reg_fence(p);
+      release(empty_v(pstage));
 #pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const int qi = q0 + r0 + 8 * j;
-    if (qi >= Sq) continue;
-    const float denom = fmaxf(l_r[j], 1e-30f);
+      for (int n = 0; n < NO; ++n)
 #pragma unroll
-    for (int n = 0; n < ND; ++n) {
-      __nv_bfloat162 out = __floats2bfloat162_rn(acc[n][2 * j] / denom,
-                                                 acc[n][2 * j + 1] / denom);
-      *reinterpret_cast<__nv_bfloat162*>(ob + qi * q_row + n * 8 + t4 * 2) =
-          out;
+        for (int j = 0; j < ON / 2; ++j) o[n][j] *= alpha[(j >> 1) & 1];
+      pack_p(s, p);
+      pstage = stage;
+      pphase = phase;
+      advance(stage, phase);
+    }
+    mbar_wait(full_v(pstage), pphase);  // the last tile's P·V
+    pv(pstage);
+    wgmma_wait<0>();
+#pragma unroll
+    for (int n = 0; n < NO; ++n) reg_fence(o[n]);
+    release(empty_v(pstage));
+
+    // epilogue: o / l as bf16 into this warpgroup's Q rows (their last
+    // reader, the last Q·Kᵀ, has completed), then one TMA store, which
+    // drops rows >= Sq
+    float inv[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+      inv[i] = 1.0f / fmaxf(l[i], 1e-30f);
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n)
+#pragma unroll
+      for (int j = 0; j < ON / 2; j += 2) {
+        const int i = (j >> 1) & 1;
+        const int row = rw + 8 * i;
+        const int col = n * ON + (j >> 2) * 8 + kcol;
+        const uint32_t addr = sQw + (col / 64) * 64 * 128 + row * 128 +
+                              ((((col % 64) / 8) ^ (row % 8)) * 16) +
+                              (col % 8) * 2;
+        const uint32_t v = pack_bf16(o[n][j] * inv[i], o[n][j + 1] * inv[i]);
+        asm volatile("st.shared.b32 [%0], %1;" ::"r"(addr), "r"(v)
+                     : "memory");
+      }
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    bar_sync(1 + cw, WG);
+    if (tid == 0 && wq_first < Sq) {
+      for (int c = 0; c < CH; ++c)
+        tma_store(&tm_o, sQw + c * 64 * 128, c * 64, h, wq_first, b);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+      asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
     }
   }
 }
@@ -348,7 +800,7 @@ __global__ void __launch_bounds__(F32_THREADS)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
 
-  const TileRange tr = tile_range(q0, Sq, Sk, causal, window);
+  const TileRange tr = tile_range(q0, BQ, BK, Sq, Sk, causal, window);
   for (int t = tr.t_begin; t < tr.t_end; ++t) {
     const int k0 = t * BK;
     __syncthreads();  // the previous tile's readers of Ks / Vs / Ss are done
@@ -452,19 +904,87 @@ __global__ void __launch_bounds__(F32_THREADS)
 // launch
 // ---------------------------------------------------------------------------
 
-template <typename T, typename Kern>
-int launch(Kern kern, size_t smem, int threads, const void* q, const void* k,
-           const void* v, void* o, int B, int Sq, int Sk, int H, int KV,
-           int causal, int window, float softcap, float scale,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D>
+int launch_f32_d(const void* q, const void* k, const void* v, void* o, int B,
+                 int Sq, int Sk, int H, int KV, int causal, int window,
+                 float softcap, float scale, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes<D>();
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_fwd_f32_kernel<D>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
-  kern<<<grid, threads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Sk, H, KV, causal,
-      window, softcap, scale);
+  flash_fwd_f32_kernel<D><<<grid, F32_THREADS, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), Sq, Sk, H, KV,
+      causal, window, softcap, scale);
+  return (int)cudaGetLastError();
+}
+
+// cuTensorMapEncodeTiled, a libcuda entry point looked up through the
+// runtime, so the library needs no -lcuda
+PFN_cuTensorMapEncodeTiled_v12000 encode_tiled() {
+  static PFN_cuTensorMapEncodeTiled_v12000 fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult status;
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &status);
+    if (err != cudaSuccess || status != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<PFN_cuTensorMapEncodeTiled_v12000>(p);
+  }
+  return fn;
+}
+
+// a (B, S, heads, D) bfloat16 tensor as a 4-D map (D, heads, S, B) with a
+// box of (64, 1, rows, 1): one 128-byte row of 64 columns per sequence
+// position, swizzled for wgmma; rows past S read as zeros and are not
+// written, and never spill into the next batch row
+bool make_map(CUtensorMap* map, const void* ptr, int B, int S, int heads,
+              int D, int rows) {
+  PFN_cuTensorMapEncodeTiled_v12000 encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)heads * D * 2,
+                                 (cuuint64_t)S * heads * D * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, estr,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool CAP>
+int launch_bf16_d(const void* q, const void* k, const void* v, void* o, int B,
+                  int Sq, int Sk, int H, int KV, int causal, int window,
+                  float softcap, float scale, cudaStream_t stream) {
+  using T = Tiles<D>;
+  auto kern = flash_fwd_wgmma_kernel<D, CAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  CUtensorMap mq, mk, mv, mo;
+  if (!make_map(&mq, q, B, Sq, H, D, 64) ||
+      !make_map(&mk, k, B, Sk, KV, D, T::BK) ||
+      !make_map(&mv, v, B, Sk, KV, D, T::BK) ||
+      !make_map(&mo, o, B, Sq, H, D, 64))
+    return (int)cudaErrorInvalidValue;
+  // softmax_tile's constants: scores to log2 units as s·(|scale|·log2e),
+  // with Q negated when scale < 0, or with a softcap cap·log2e·tanh(s·scale
+  // / cap). |scale| is held at 1e-30 or more, so that a masked key's
+  // -1e38 still lands far below any score (p = 0) when scale is 0.
+  const int negate_q = !CAP && scale < 0.0f;
+  const float c1 = CAP ? scale / softcap : fmaxf(fabsf(scale), 1e-30f) * LOG2E;
+  const float c2 = CAP ? softcap * LOG2E : 1.0f;
+  const dim3 grid((unsigned)(H * B), (unsigned)((Sq + T::BQ - 1) / T::BQ));
+  kern<<<grid, T::THREADS, T::SMEM, stream>>>(mq, mk, mv, mo, H, Sq, Sk,
+                                              H / KV, causal, window,
+                                              negate_q, c1, c2);
   return (int)cudaGetLastError();
 }
 
@@ -473,13 +993,14 @@ int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
              int B, int Sq, int Sk, int H, int KV, int causal, int window,
              float softcap, float scale, cudaStream_t stream) {
   if (dtype == 0)
-    return launch<float>(flash_fwd_f32_kernel<D>, f32_smem_bytes<D>(),
-                         F32_THREADS, q, k, v, o, B, Sq, Sk, H, KV, causal,
-                         window, softcap, scale, stream);
+    return launch_f32_d<D>(q, k, v, o, B, Sq, Sk, H, KV, causal, window,
+                           softcap, scale, stream);
+  if (dtype == 1 && softcap > 0.0f)
+    return launch_bf16_d<D, true>(q, k, v, o, B, Sq, Sk, H, KV, causal,
+                                  window, softcap, scale, stream);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(flash_fwd_mma_kernel<D>, mma_smem_bytes<D>(),
-                                 MMA_THREADS, q, k, v, o, B, Sq, Sk, H, KV,
-                                 causal, window, softcap, scale, stream);
+    return launch_bf16_d<D, false>(q, k, v, o, B, Sq, Sk, H, KV, causal,
+                                   window, softcap, scale, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -487,8 +1008,10 @@ int launch_d(int dtype, const void* q, const void* k, const void* v, void* o,
 
 // q (B, Sq, H, D), k and v (B, Sk, KV, D), o (B, Sq, H, D), contiguous, all
 // of one type: dtype 0 = float32, 1 = bfloat16 (16-byte aligned). window 0
-// = none, softcap 0 = none. Returns cudaGetLastError() after the launch
-// (0 = cudaSuccess).
+// = none, softcap 0 = none. Returns
+// cudaGetLastError() after the launch (0 = cudaSuccess), or
+// cudaErrorInvalidValue for arguments the kernels do not take (including a
+// tensor the TMA maps cannot describe).
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* o, int B, int Sq,
                                      int Sk, int H, int KV, int D, int dtype,

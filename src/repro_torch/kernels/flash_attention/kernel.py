@@ -5,8 +5,9 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/flash_attention/kernel.py:75`
 visible (query, key) pair against each input read once, so its bound on an
 H100 SXM is the pair count over 989 TFLOP/s (bf16 dense). One launch covers
 all batches, heads and query tiles; it takes any Sq ≤ Sk. bfloat16 runs on
-the tensor cores (``mma.sync``), float32 on the CUDA cores so that it keeps
-float32 accuracy.
+the tensor cores (``wgmma``, fed by TMA loads through tensor maps the
+launcher builds), float32 on the CUDA cores so that it keeps float32
+accuracy.
 """
 from __future__ import annotations
 
@@ -50,8 +51,9 @@ def flash_attention(q, k, v, *, causal: bool = True,
                     scale: Optional[float] = None):
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) → (B, Sq, H, D) in q's type.
 
-    CUDA tensors only, contiguous, one type (float32 or bfloat16), D in
-    ``HEAD_DIMS``. Anything else raises; nothing falls back.
+    CUDA tensors only, contiguous and 16-byte aligned, one type (float32
+    or bfloat16), D in ``HEAD_DIMS``. Anything else raises; nothing falls
+    back.
     """
     check_inputs(q, k, v)
     if q.device.type != "cuda":
@@ -67,7 +69,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")
-        if t.data_ptr() % 16:   # the bf16 kernel loads 16-byte vectors
+        if t.data_ptr() % 16:   # a TMA map needs a 16-byte aligned base
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned")
     if window is not None and window < 1:

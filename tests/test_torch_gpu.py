@@ -99,6 +99,29 @@ FLASH_CASES = [
     (1, 130, 130, 4, 4, 256, True, None, 30.0),     # D = 256
     (1, 3, 130, 4, 1, 128, True, 32, None),         # queries at the kv tail
     (1, 96, 160, 2, 2, 64, False, None, None),      # non-causal, Sq < Sk
+    # the bf16 kernel's tile edges: BQ = 128 query rows (64 at D = 256),
+    # BK = 144 kv rows at D = 128 (128 at D = 64, 64 at D = 256)
+    (1, 1, 1, 4, 2, 128, True, None, None),
+    (1, 145, 145, 4, 2, 128, True, None, None),
+    (1, 144, 288, 4, 2, 128, True, None, None),
+    (1, 127, 127, 4, 2, 128, True, None, None),
+    (1, 128, 128, 4, 2, 128, True, None, None),
+    (1, 129, 129, 4, 2, 128, True, None, None),
+    (1, 257, 257, 4, 2, 128, True, None, None),
+    (1, 1, 129, 4, 2, 128, True, None, None),       # one query, ragged Sk
+    (1, 127, 257, 4, 2, 128, True, None, None),
+    (1, 300, 1000, 4, 2, 128, True, None, None),    # Sq < Sk, ragged Sk
+    (1, 300, 300, 4, 2, 128, True, 1, None),        # windows at the edges
+    (1, 300, 300, 4, 2, 128, True, 127, None),
+    (1, 300, 300, 4, 2, 128, True, 128, None),
+    (1, 300, 300, 4, 2, 128, True, 129, None),
+    (1, 200, 200, 4, 4, 128, True, None, None),     # GQA group 1
+    (1, 200, 200, 40, 8, 128, True, None, None),    # group 5 (qwen3 40/8)
+    (1, 200, 200, 8, 1, 128, True, None, None),     # group 8
+    (2, 200, 200, 4, 2, 128, True, None, None),     # no row crosses a batch
+    (1, 257, 257, 4, 2, 64, True, None, 50.0),      # D = 64 with softcap
+    (1, 257, 257, 4, 2, 256, True, None, 50.0),     # D = 256 with softcap
+    (1, 300, 1000, 4, 2, 128, False, None, None),   # non-causal, Sq < Sk
 ]
 
 
@@ -107,7 +130,10 @@ FLASH_CASES = [
 def test_flash_attention_matches_plain(cuda, case, dtype):
     B, Sq, Sk, H, KV, D, causal, window, cap = case
     g = torch.Generator(device=cuda).manual_seed(2)
-    q = torch.randn((B, Sq, H, D), generator=g, device=cuda).to(dtype)
+    # with a softcap, q is scaled by cap / 4 so that the scores spread to
+    # about +-cap, where cap * tanh(s / cap) bends away from s
+    q = torch.randn((B, Sq, H, D), generator=g, device=cuda)
+    q = (q * (cap / 4 if cap else 1.0)).to(dtype)
     k = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, Sk, KV, D), generator=g, device=cuda).to(dtype)
     before = FA.flash_attention.launches
@@ -122,9 +148,36 @@ def test_flash_attention_matches_plain(cuda, case, dtype):
     else:
         err, elem, row = bf16_mismatch(out, ref)
         assert elem <= 1.0 and row <= 1.0, (err, elem, row)
+    if cap:   # control: a kernel that left the cap out fails these inputs
+        nocap = attention_ref(q, k, v, causal=causal, window=window)
+        if dtype == torch.float32:
+            assert not torch.allclose(out, nocap, atol=1e-5, rtol=1e-5)
+        else:
+            err, elem, row = bf16_mismatch(out, nocap)
+            assert elem > 1.0 or row > 1.0, (err, elem, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("scale, window, cap", [
+    (-0.1, None, None), (0.0, None, None), (-0.1, 100, None),
+    (-0.1, None, 30.0)])
+def test_flash_attention_takes_any_scale(cuda, D, scale, window, cap, dtype):
+    # as attention_ref does: a scale <= 0 turns the order of the scores
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q, k, v = (torch.randn((2, 300, n, D), generator=g,
+                           device=cuda).to(dtype) for n in (4, 2, 2))
+    out = FA.flash_attention(q, k, v, window=window, softcap=cap, scale=scale)
+    ref = attention_ref(q, k, v, window=window, softcap=cap, scale=scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        err, elem, row = bf16_mismatch(out, ref)
+        assert elem <= 1.0 and row <= 1.0, (err, elem, row)
 
 
 def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
+    before = FA.flash_attention.launches
     q = torch.zeros(1, 8, 2, 64, device=cuda)
     with pytest.raises(ValueError):                      # D = 96
         FA.flash_attention(torch.zeros(1, 8, 2, 96, device=cuda),
@@ -139,6 +192,20 @@ def test_flash_attention_raises_on_unsupported_cuda_inputs(cuda):
                       dtype=torch.bfloat16)[1:].view(1, 8, 2, 64)
     with pytest.raises(ValueError):
         FA.flash_attention(off, off, off)
+    # the bf16 kernel reads q, k, v through 4-D TMA maps, which need a
+    # 16-byte aligned base and dense rows: a k that is only 8-byte aligned,
+    # or a v whose heads are strided, raises before any launch
+    qb = torch.zeros(1, 8, 4, 64, device=cuda, dtype=torch.bfloat16)
+    kb = torch.zeros(1, 8, 2, 64, device=cuda, dtype=torch.bfloat16)
+    k8 = torch.zeros(8 * 2 * 64 + 4, device=cuda,        # 8-byte aligned
+                     dtype=torch.bfloat16)[4:].view(1, 8, 2, 64)
+    with pytest.raises(ValueError, match="aligned"):
+        FA.flash_attention(qb, k8, kb)
+    v_strided = torch.zeros(1, 8, 4, 64, device=cuda,
+                            dtype=torch.bfloat16)[:, :, ::2]
+    with pytest.raises(ValueError, match="contiguous"):
+        FA.flash_attention(qb, kb, v_strided)
+    assert FA.flash_attention.launches == before
 
 
 def _ssd_inputs(dev, b, S, H, P, G, N, dtype=torch.float32, seed=3):
