@@ -66,9 +66,15 @@ failure propagates, so the script exits non-zero and prints no result.
      test's grouped (2, 256, 4, 64) G = 2 shapes at chunk 64 and 128, all
      float32 within 3e-4 (absolute plus relative, y and the final state),
      and the layer with bf16 inputs within 5e-2 (the JAX package's
-     tolerances). Timed like phase 3, bound by its operations (the lower
-     triangle's multiply-adds over 67 TFLOP/s float32) or bytes; no single
-     PyTorch call computes the scan, so it has no library time.
+     tolerances). Timed like phase 3, bound by the kernel's tensor-core
+     scheme: its operations (the lower triangle's multiply-adds, each
+     float32 product done as three bf16 products, so three times the work
+     over 989 TFLOP/s) or its bytes, whichever is larger; the float32
+     CUDA-core figure (the same work over 67 TFLOP/s) is logged beside it.
+     The layer call's kernels (its two passes and the zeroing of its sync
+     flags) are profiled one by one, before any other profile of the run
+     (see ``ssd_layer_kernels_ms``). No single PyTorch call computes the
+     scan, so it has no library time.
   9. Serving, small: mamba2-2.7b's SMOKE config (2 layers, chunk 64,
      float32) on the card against the CPU, one 100-token prompt (a short
      last chunk) through ``prefill`` and 8 decode steps, logits to 1e-4.
@@ -589,21 +595,44 @@ def ssd_work(b, S, H, P, G, N, chunk, elt):
     return n_bytes, flops
 
 
-def check_ssd(torch):
-    """Phase 8: the SSD kernel against its plain version, and its times."""
+def ssd_inputs(torch, g, b, S, H, P, G, N, dtype):
+    """Phase 8's SSD inputs: x, dt, A, B, C drawn on the card from g."""
+    rn = lambda *shape: torch.randn(shape, generator=g, device="cuda:0")
+    return ((rn(b, S, H, P) * 0.5).to(dtype),
+            torch.nn.functional.softplus(rn(b, S, H)) * 0.1,
+            -torch.exp(rn(H) * 0.3), (rn(b, S, G, N) * 0.3).to(dtype),
+            (rn(b, S, G, N) * 0.3).to(dtype))
+
+
+def ssd_layer_kernels_ms(torch) -> dict:
+    """Device time of each kernel of one SSD call at mamba2-2.7b's layer
+    (after a warm-up), from torch.profiler: {kernel name: ms}; {} if no
+    device event was traced. main() takes it before any other profile."""
+    from repro_torch.kernels.ssd.kernel import ssd
+
+    g = torch.Generator(device="cuda:0").manual_seed(3)
+    args = ssd_inputs(torch, g, 1, 4096, 80, 64, 1, 128, torch.float32)
+    ssd(*args, chunk=256)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        ssd(*args, chunk=256)
+        torch.cuda.synchronize()
+    return {e.key[:60]: e.self_device_time_total / 1e3
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+def check_ssd(torch, passes_ms: dict):
+    """Phase 8: the SSD kernel against its plain version, and its times;
+    ``passes_ms`` is ``ssd_layer_kernels_ms``'s profile of the layer call."""
     from repro_torch.kernels.ssd.kernel import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_ref
 
-    dev = torch.device("cuda:0")
-    g = torch.Generator(device=dev).manual_seed(3)
+    g = torch.Generator(device="cuda:0").manual_seed(3)
     bf, f32 = torch.bfloat16, torch.float32
-
-    def inputs(b, S, H, P, G, N, dt_):
-        rn = lambda *shape: torch.randn(shape, generator=g, device=dev)
-        return ((rn(b, S, H, P) * 0.5).to(dt_),
-                torch.nn.functional.softplus(rn(b, S, H)) * 0.1,
-                -torch.exp(rn(H) * 0.3), (rn(b, S, G, N) * 0.3).to(dt_),
-                (rn(b, S, G, N) * 0.3).to(dt_))
+    inputs = lambda *shape: ssd_inputs(torch, g, *shape)
 
     # the plain chunked version against the sequential recurrence first
     for shape, chunk in (((2, 256, 4, 64, 2, 32), 64),
@@ -654,16 +683,27 @@ def check_ssd(torch):
         one = call_ms(torch, kern, reps=10 if big else TIMING_REPS)
         n_bytes, n_flops = ssd_work(b, S, H, P, G, N, chunk,
                                     args[0].element_size())
-        bms, by = bound_ms(n_bytes, n_flops)
+        # the kernel's scheme: every product as three bf16 tensor-core ones
+        bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS / 3)
+        f32_ms = n_flops / F32_FLOPS * 1e3
         rows[label] = {"shape": [b, S, H, P, G, N], "chunk": chunk,
                        "dtype": str(dt_), "ms": ms, "plain_ms": plain_ms,
                        "call_ms": one, "library_ms": None, "bound_ms": bms,
                        "bound_by": by, "max_abs_err": err,
                        "of_tol": worst, "tflops": n_flops / ms / 1e9}
-        log(f"[ssd] {label:8s} device {ms:.3f} ms, one call {one:.3f} ms, "
+        log(f"[ssd] {label:8s} device {ms:.4f} ms, one call {one:.4f} ms, "
             f"plain {plain_ms:.3f} ms, library none, bound {bms:.4f} ms "
-            f"({by}: {n_flops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB), "
+            f"({by}: {n_flops / 1e9:.2f} GFLOP x 3 bf16 products, "
+            f"{n_bytes / 1e6:.1f} MB; {100 * bms / ms:.1f}% of it; the "
+            f"float32 work on the CUDA cores alone {f32_ms:.4f} ms), "
             f"{n_flops / ms / 1e9:.2f} TFLOP/s")
+        if label == "layer":
+            if not passes_ms:
+                log("[ssd] per-kernel device time not measured (no CUDA "
+                    "events traced)")
+            for name, t in sorted(passes_ms.items(), key=lambda kv: -kv[1]):
+                log(f"[ssd]   kernel {t:8.4f} ms  {name}")
+            rows[label]["passes_ms"] = passes_ms
         del args
     torch.cuda.empty_cache()
     return rows
@@ -956,6 +996,11 @@ def main() -> int:
     shapes.update({k: (N_CLIENTS, v) for k, v in mlp_leaves.items()})
     shapes["large"] = (N_CLIENTS, 1 << 20)
     rows = check_kernels(torch, shapes)
+    # the SSD layer call's kernels, profiled before any other profile of
+    # the run: a profiler session that follows a large one loses device
+    # events at its start (after the serving phases' profiles, all of the
+    # call's)
+    ssd_passes = ssd_layer_kernels_ms(torch)
 
     # phase 4: the slice
     small_reference_check(torch)
@@ -977,7 +1022,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # phases 8-10: the SSD kernel, then the mamba2 serving path
-    ssd_rows = check_ssd(torch)
+    ssd_rows = check_ssd(torch, ssd_passes)
     serve_reference_check(torch, "mamba2-2.7b", 100)
     torch.cuda.empty_cache()
     serve_m = serve_full_width(torch, "mamba2-2.7b")

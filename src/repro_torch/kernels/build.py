@@ -3,8 +3,9 @@
 The sources in ``csrc/`` have a plain C interface. At first use ``nvcc``
 compiles each source to an object, all of them at once, links them into
 one shared library and loads it with ``ctypes``. The library lands in
-``build/<hash>/`` beside this file, keyed on a hash of the sources and
-flags, so an edited source rebuilds and an unchanged one loads at once.
+``build/<hash>/`` beside this file, keyed on a hash of the sources, the
+headers they include and the flags, so an edited source or header
+rebuilds and an unchanged one loads at once.
 Nothing but this package's sources goes into it.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` so that no
@@ -25,6 +26,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "build"
 SOURCES = ("fused_update.cu", "quantize.cu", "flash_attention.cu", "ssd.cu")
+HEADERS = ("hopper.cuh",)   # included by the sources: hashed with them
 ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (ARCH, "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC")
 
@@ -41,7 +43,7 @@ def _nvcc() -> str:
 
 def _digest() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:16]
@@ -95,7 +97,7 @@ def library() -> ctypes.CDLL:
                                            vp]
         lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, *[i32] * 9,
                                               f32, f32, vp]
-        lib.repro_ssd.argtypes = [vp] * 8 + [i32] * 8 + [vp]
+        lib.repro_ssd.argtypes = [vp] * 10 + [i32] * 8 + [vp]
         for fn in (lib.repro_fused_sgd_update, lib.repro_quantize,
                    lib.repro_dequant_mean, lib.repro_flash_attention,
                    lib.repro_ssd):

@@ -2,14 +2,17 @@
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py:68``
 (``ssd_chunked_kernel``): Mamba2's SSD scan from a zero state, y and the
-final state, float32 math inside. The kernel is bound by operations: per
-head and chunk the lower triangle of ``(C·Bᵀ ∘ L)·(x·dt)``, the state term
-of y and the state update, about 16 GFLOP per mamba2-2.7b layer at 4,096
-tokens against 176 MB moved, so its bound on an H100 SXM is that work over
-67 TFLOP/s (float32, CUDA cores). One call covers every batch row, head
-and chunk in two kernels (C·Bᵀ once per group and chunk, into a float32
-scratch the wrapper allocates, then the scan); any S is taken (the last
-chunk may be short).
+final state, at float32 accuracy. Per head and chunk the work is the lower
+triangle of ``(C·Bᵀ ∘ L)·(x·dt)``, the state term of y and the chunk's
+state, about 16 GFLOP per mamba2-2.7b layer at 4,096 tokens against
+176 MB moved. The kernel runs every product on the tensor cores as three
+bf16 products (a hi/lo split), so its bound on an H100 SXM is the larger
+of the bytes over 3.35 TB/s and three times the work over 989 TFLOP/s.
+One call launches two chunk-parallel kernels: C·Bᵀ once per (batch row,
+group, chunk), then per (batch row, head, chunk) the chunk's state,
+passed on from chunk to chunk, and the outputs. The wrapper allocates
+their scratch. Any S is taken
+(the last chunk may be short).
 """
 from __future__ import annotations
 
@@ -19,8 +22,8 @@ from repro_torch.kernels.build import check, library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 D_STATES = (16, 32, 128)   # the Pallas tests' and mamba2-2.7b's
-P_MULTIPLE = 16     # the kernel splits P into blocks of 16 state rows
-MAX_CHUNK = 256     # one scan row per thread of a block
+P_MULTIPLE = 16     # the kernel's m16 tiles of P
+MAX_CHUNK = 256     # one cumulative-sum row per thread of a block
 
 
 def check_inputs(x, dt, A, B, C, chunk: int):
@@ -82,17 +85,24 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
             raise ValueError(f"ssd: {name} is not 16-byte aligned")
     y = torch.empty_like(x)
     state = torch.empty((b, H, P, N), dtype=torch.float32, device=x.device)
-    # C·Bᵀ of every (batch row, group, chunk), Q padded to whole 64-row tiles
-    QP = -(-Q // 64) * 64
-    cb = torch.empty((b, G, -(-S // Q), QP, QP), dtype=torch.float32,
-                     device=x.device)
+    # scratch: C·Bᵀ of every (batch row, group, chunk), Q padded to whole
+    # 64-row tiles, and the state entering each chunk after the first
+    # (float32); a ticket counter and one done-flag per (batch row, 64 rows
+    # of P, head, chunk) for the state passing, zeroed by the launcher
+    nc, QP = -(-S // Q), -(-Q // 64) * 64
+    f32 = dict(dtype=torch.float32, device=x.device)
+    cb = torch.empty((b, G, nc, QP, QP), **f32)
+    states = torch.empty((b, nc - 1, H, P, N), **f32)
+    sync = torch.empty(1 + b * -(-P // 64) * H * nc, dtype=torch.int32,
+                       device=x.device)
     lib = library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         status = lib.repro_ssd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
-            C.data_ptr(), cb.data_ptr(), y.data_ptr(), state.data_ptr(), b,
-            S, H, P, G, N, Q, _DTYPE_CODE[x.dtype], stream)
+            C.data_ptr(), cb.data_ptr(), states.data_ptr(), sync.data_ptr(),
+            y.data_ptr(), state.data_ptr(), b, S, H, P, G, N, Q,
+            _DTYPE_CODE[x.dtype], stream)
     ssd.launches += 1
     check(status, "ssd")
     return y, state

@@ -227,6 +227,17 @@ SSD_CASES = [
     (1, 200, 4, 32, 2, 16, 64),        # ragged: a 8-row last chunk
     (1, 37, 2, 16, 1, 32, 256),        # one chunk shorter than a tile
     (1, 1000, 80, 64, 1, 128, 256),    # mamba2-2.7b's heads, 232-row tail
+    (1, 129, 2, 32, 1, 32, 64),        # last chunk of 1 row
+    (1, 127, 2, 32, 1, 32, 64),        # last chunk of 63 rows
+    (1, 192, 2, 32, 1, 32, 64),        # last chunk of 64 rows (full)
+    (1, 193, 2, 32, 1, 32, 128),       # last chunk of 65 rows
+    (1, 319, 2, 64, 1, 128, 256),      # last chunk of 63 rows at chunk 256
+    (2, 256, 4, 64, 1, 128, 256),      # a single chunk (nc = 1)
+    (1, 300, 8, 32, 4, 32, 128),       # G = 4 with H = 8
+    (2, 100, 4, 16, 1, 16, 64),        # P = 16 with N = 16
+    (1, 130, 2, 128, 1, 32, 64),       # P = 128: two 64-column tiles of P
+    (1, 70, 2, 80, 1, 16, 64),         # P = 80: a 16-column second tile
+    (1, 1, 2, 32, 1, 16, 64),          # S = 1
 ]
 
 
@@ -242,6 +253,24 @@ def test_ssd_matches_plain(cuda, case, dtype):
     assert y.dtype == dtype and y.shape == x.shape
     assert st.dtype == torch.float32 and st.shape == (b, H, P, N)
     yr, sr = ssd_chunked_ref(x, dt, A, B, C, chunk)
+    tol = 3e-4 if dtype == torch.float32 else 5e-2
+    torch.testing.assert_close(y.float(), yr, atol=tol, rtol=tol)
+    torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_strong_decay_matches_recurrence(cuda, dtype):
+    # dt x 10: exp(cums) falls to about 1e-30 within a chunk of 100 rows,
+    # so the decay spans the float32 range and the split's lo parts can be
+    # denormal; held to the sequential recurrence
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 300, 4, 64, 1, 128, dtype)
+    dt = dt * 10
+    assert float(torch.exp((dt[0, :100] * A).sum(0)).min()) < 1e-25
+    before = SSD.ssd.launches
+    y, st = SSD.ssd(x, dt, A, B, C, chunk=100)
+    torch.cuda.synchronize()
+    assert SSD.ssd.launches == before + 1
+    yr, sr = ssd_ref(x, dt, A, B, C)
     tol = 3e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(y.float(), yr, atol=tol, rtol=tol)
     torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
