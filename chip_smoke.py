@@ -14,13 +14,22 @@ failure propagates, so the script exits non-zero and prints no result.
      slice's shapes — the logreg leaf (32, 784), the MLP's leaves — and at
      one large shape, (32, 2^20), where the memory bound shows: int8 and
      int4 codes exactly equal, the fused update to 1e-6 (float32) and
-     1e-2 (bfloat16), dequant_mean to 1e-6. Each kernel is timed with CUDA
-     events (median of 25 single launches) beside its bound (bytes it
-     must move over 3.35 TB/s, or its float32 operations over 67 TFLOP/s,
-     whichever is larger), the plain version's time and, for the fused
-     update, the time of the one PyTorch call that computes the same
-     function (``torch._fused_sgd_``, the op behind
-     ``torch.optim.SGD(fused=True)``), held to the plain version first.
+     1e-2 (bfloat16), dequant_mean to 1e-6. Each kernel is timed from a
+     cold L2 (256 MB read before each launch, CUDA events around the
+     launch alone; the median over 25 samples of 10) beside its bound
+     (bytes it must move over the 3.35 TB/s of HBM, or its float32
+     operations over 67 TFLOP/s, whichever is larger), the plain version's
+     time and, for the fused update, the time of the one PyTorch call that
+     computes the same function (``torch._fused_sgd_``, the op behind
+     ``torch.optim.SGD(fused=True)``), held to the plain version first,
+     all timed the same way. Then the update of each whole tree the slice
+     steps — the logreg tree (one leaf) and the MLP tree (8 leaves, 3.0 M
+     floats) — through ``tree_sgd_update_``, as the local step calls it:
+     one launch, bit-equal to the plain version, timed beside its bound
+     (20 B per element over 3.35 TB/s), the per-leaf launches it
+     replaces, ``torch._fused_sgd_`` over the same leaf lists and the
+     launch floor (a kernel that returns at once, ``torch.cuda._sleep(0)``),
+     which every training kernel's row logs.
   4. The slice: the port against itself on a small input (the card's run
      against the CPU run on the same draws), then ``stl_sc`` + int8 at
      the full width of the paper's Table 1 convex model (logreg, d=784,
@@ -29,7 +38,11 @@ failure propagates, so the script exits non-zero and prints no result.
      to 3 of its 11 stages (96 rounds, 3,584 local steps). The objective
      must be finite and fall below 0.9× its start, the comm ledger must
      equal the integer formula, and every kernel's launch count (reset to
-     0 just before each run) must have gone up.
+     0 just before each run) must match the path: one fused update per
+     local step, one quantize and one dequant_mean per leaf per round.
+     A profile of 4 rounds of each model gives ms per local step, kernels
+     per step, the device's busy share and each training kernel's device
+     time per launch inside the step (L2 as the step leaves it).
   5. Flash attention against its plain version on the card at gemma2-27b's
      layer shapes, q (1, 4608, 32, 128) and k/v (1, 4608, 16, 128) in
      bfloat16 — local (window 4096, softcap 50), global (causal, softcap
@@ -66,10 +79,13 @@ failure propagates, so the script exits non-zero and prints no result.
      test's grouped (2, 256, 4, 64) G = 2 shapes at chunk 64 and 128, all
      float32 within 3e-4 (absolute plus relative, y and the final state),
      and the layer with bf16 inputs within 5e-2 (the JAX package's
-     tolerances). Timed like phase 3, bound by the kernel's tensor-core
-     scheme: its operations (the lower triangle's multiply-adds, each
-     float32 product done as three bf16 products, so three times the work
-     over 989 TFLOP/s) or its bytes, whichever is larger; the float32
+     tolerances); then the layer and a two-chunk shape from a non-zero
+     initial state, held to the sequential recurrence from that state
+     (``ssd_ref(initial_state=...)``) within 3e-4. Timed like phase 3,
+     bound by the kernel's tensor-core scheme: its operations (the lower
+     triangle's multiply-adds, each float32 product done as three bf16
+     products, so three times the work over 989 TFLOP/s) or its bytes,
+     whichever is larger; the float32
      CUDA-core figure (the same work over 67 TFLOP/s) is logged beside it.
      The layer call's kernels (its two passes and the zeroing of its sync
      flags) are profiled one by one, before any other profile of the run
@@ -119,6 +135,16 @@ N_CLIENTS = 32
 SLICE_TOPOLOGY = {"logreg": "star", "mlp": "streaming"}
 TIMING_REPS = 25
 SLEEP_CYCLES = 10_000_000   # ~5 ms at the H100's ~2 GHz SM clock
+L2_SCRUB_BYTES = 256 << 20  # read before a cold launch: 5x the 50 MB L2
+# phase 3's shapes: the logreg leaf, the MLP's leaves (width 96, depth 3)
+# and one large shape where the memory bound shows
+PHASE3_SHAPES = {"logreg theta": (N_CLIENTS, 784),
+                 "mlp w0": (N_CLIENTS, 784 * 96),
+                 "mlp w1": (N_CLIENTS, 96 * 96),
+                 "mlp b": (N_CLIENTS, 96),
+                 "mlp out.w": (N_CLIENTS, 96),
+                 "mlp out.b": (N_CLIENTS, 1),
+                 "large": (N_CLIENTS, 1 << 20)}
 
 
 def log(msg: str):
@@ -152,24 +178,36 @@ def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(samples)
 
 
-def device_ms(torch, fn, batch: int = 10, reps: int = TIMING_REPS) -> float:
-    """Median device time of one call: TIMING_REPS samples, each a batch
-    of calls queued behind a sleeping kernel so they run back to back on
-    the device, CUDA events around the batch, divided by its size."""
+def device_ms(torch, fn, batch: int = 10, reps: int = TIMING_REPS,
+              cold: bool = False) -> float:
+    """Median device time of one call: ``reps`` samples, each a batch of
+    calls queued behind a sleeping kernel so that they run back to back on
+    the device. Warm: CUDA events around the batch, divided by its size;
+    a call's inputs may sit in L2 from the call before. ``cold``: before
+    each call a read of L2_SCRUB_BYTES evicts them, and events around the
+    call alone time it, so a bound from the HBM rate bounds what is
+    timed."""
     for _ in range(3):
         fn()
+    scrub = (torch.empty(L2_SCRUB_BYTES // 4, device="cuda:0") if cold
+             else None)
     torch.cuda.synchronize()
     samples = []
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
         torch.cuda._sleep(SLEEP_CYCLES)   # holds the stream while we queue
-        a.record()
-        for _ in range(batch):
-            fn()
-        b.record()
-        b.synchronize()
-        samples.append(a.elapsed_time(b) / batch)
+        pairs = []
+        for i in range(batch if cold else 1):
+            if cold:
+                scrub.sum()
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            for _ in range(1 if cold else batch):
+                fn()
+            b.record()
+            pairs.append((a, b))
+        pairs[-1][1].synchronize()
+        samples.append(sum(a.elapsed_time(b) for a, b in pairs) / batch)
     return statistics.median(samples)
 
 
@@ -179,18 +217,19 @@ def bound_ms(n_bytes: float, n_flops: float, peak_flops: float = F32_FLOPS):
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
-def sgd_library(p, m, g, *, eta, beta, wd=0.0):
+def sgd_library(ps, ms, gs, *, eta, beta, wd=0.0):
     """The one PyTorch call computing the fused update (the op behind
-    ``torch.optim.SGD(fused=True)``), in place on p and m; timed beside the
-    kernel, used nowhere in the port."""
+    ``torch.optim.SGD(fused=True)``), in place on the lists of leaves ps
+    and ms; timed beside the kernel, used nowhere in the port."""
     import torch
-    torch._fused_sgd_([p], [g], [m], weight_decay=wd, momentum=beta, lr=eta,
+    torch._fused_sgd_(ps, gs, ms, weight_decay=wd, momentum=beta, lr=eta,
                       dampening=0.0, nesterov=False, maximize=False,
                       is_first_step=False)
 
 
-def check_kernels(torch, shapes):
-    """Phase 3: each kernel against its plain version, and its times."""
+def check_kernels(torch, shapes, floor_ms=None):
+    """Phase 3: each kernel against its plain version, and its times;
+    ``floor_ms``, the launch floor, is logged beside each row."""
     from repro_torch.kernels.fused_update.kernel import fused_sgd_update
     from repro_torch.kernels.fused_update.ref import sgd_update_ref
     from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
@@ -225,7 +264,7 @@ def check_kernels(torch, shapes):
         # the library call timed beside the kernel must compute the same
         # function: torch.optim.SGD(fused=True)'s op, dampening 0, no Nesterov
         pl, ml = p.clone(), m.clone()
-        sgd_library(pl, ml, gr, eta=0.05, beta=0.9, wd=1e-4)
+        sgd_library([pl], [ml], [gr], eta=0.05, beta=0.9, wd=1e-4)
         pr, mr = sgd_update_ref(p, m, gr, eta=0.05, beta=0.9, wd=1e-4)
         torch.cuda.synchronize()
         lib_err = max(float((a - b).abs().max())
@@ -263,7 +302,7 @@ def check_kernels(torch, shapes):
             "fused_sgd_update": (
                 lambda: fused_sgd_update(pk, mk, gr, eta=1e-6, beta=0.9),
                 lambda: sgd_update_ref(p, m, gr, eta=1e-6, beta=0.9),
-                lambda: sgd_library(pl, ml, gr, eta=1e-6, beta=0.9),
+                lambda: sgd_library([pl], [ml], [gr], eta=1e-6, beta=0.9),
                 bound_ms(20 * n, 4 * n), err_f),
             "quantize_kernel": (
                 lambda: quantize_kernel(y, rb, s, bits=8),
@@ -275,18 +314,129 @@ def check_kernels(torch, shapes):
                 None, bound_ms(n + 4 * N + 4 * M, 2 * n + N), err_d),
         }
         for name, (kf, pf, lf, (bms, by), err) in fns.items():
-            ms, plain, call = (device_ms(torch, kf), device_ms(torch, pf),
+            ms, plain, call = (device_ms(torch, kf, cold=True),
+                               device_ms(torch, pf, cold=True),
                                call_ms(torch, kf))
-            lib = device_ms(torch, lf) if lf is not None else None
+            lib = (device_ms(torch, lf, cold=True) if lf is not None
+                   else None)
             rows[(name, label)] = {"ms": ms, "plain_ms": plain,
                                    "call_ms": call, "library_ms": lib,
                                    "bound_ms": bms, "bound_by": by,
+                                   "launch_floor_ms": floor_ms,
                                    "max_abs_err": err}
             lib_txt = "-" if lib is None else f"{lib * 1e3:.2f} us"
+            floor_txt = ("" if floor_ms is None
+                         else f", launch floor {floor_ms * 1e3:.2f} us")
             log(f"[kernels] {name:20s} {label:13s} ({N}, {M}): device "
                 f"{ms * 1e3:8.2f} us, plain {plain * 1e3:8.2f} us, library "
-                f"{lib_txt}, bound {bms * 1e3:8.3f} us ({by}); one call "
-                f"{call * 1e3:7.2f} us; max_abs_err {err:.3g}")
+                f"{lib_txt}, bound {bms * 1e3:8.3f} us ({by}){floor_txt}; "
+                f"one call {call * 1e3:7.2f} us; max_abs_err {err:.3g}")
+    return rows
+
+
+def launch_floor_ms(torch) -> float:
+    """Device time of a kernel that returns at once (PyTorch's one-thread
+    ``_sleep`` kernel asked for 0 cycles), timed as phase 3 times the
+    training kernels: the floor under any launch."""
+    return device_ms(torch, lambda: torch.cuda._sleep(0), cold=True)
+
+
+def slice_trees(torch) -> dict:
+    """The stacked (32, …) trees the slice's local steps update, as lists
+    of leaves on the card, random from a seed: {label: (ps, ms, gs)}."""
+    from repro_torch.models import logreg, mlp
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(4)
+    trees = {}
+    for label, p0 in (("logreg tree", logreg.init_params(784, device=dev)),
+                      ("mlp tree", mlp.init_params(784, width=96, depth=3,
+                                                   device=dev))):
+        rand = lambda: [torch.randn((N_CLIENTS,) + tuple(t.shape),
+                                    generator=g, device=dev)
+                        for t in tree_leaves(p0)]
+        trees[label] = (rand(), rand(), rand())
+    return trees
+
+
+def tree_update_ms(torch, ps, ms, gs) -> float:
+    """Cold device time of one update of a whole tree through
+    ``tree_sgd_update_``, as the local step calls it (in place on ps and
+    ms)."""
+    from repro_torch.kernels.fused_update.ops import tree_sgd_update_
+
+    return device_ms(torch, lambda: tree_sgd_update_(ps, ms, gs, eta=1e-6,
+                                                     beta=0.9), cold=True)
+
+
+def check_trees(torch, floor_ms: float) -> dict:
+    """Phase 3, the trees: one launch updates a whole stacked (32, …) tree
+    the slice's local steps update (logreg's one leaf, the MLP's 8),
+    bit-equal to the plain version in float32; its device time beside its
+    bound, the per-leaf launches it replaces, ``torch._fused_sgd_`` over
+    the same leaf lists (held to the plain version first) and the launch
+    floor."""
+    from repro_torch.kernels.fused_update.kernel import (
+        fused_sgd_update, fused_sgd_update_leaves)
+    from repro_torch.kernels.fused_update.ref import tree_sgd_update_ref
+
+    rows = {}
+    for label, (ps, ms, gs) in slice_trees(torch).items():
+        n = sum(t.numel() for t in ps)
+        want_p, want_m = tree_sgd_update_ref(ps, ms, gs, eta=0.05, beta=0.9,
+                                             wd=1e-4)
+        pk, mk = [t.clone() for t in ps], [t.clone() for t in ms]
+        before = fused_sgd_update.launches
+        fused_sgd_update_leaves(pk, mk, gs, eta=0.05, beta=0.9, wd=1e-4)
+        torch.cuda.synchronize()
+        if fused_sgd_update.launches != before + 1:
+            raise AssertionError(f"{label}: "
+                                 f"{fused_sgd_update.launches - before} "
+                                 f"launches for one tree")
+        if not all(torch.equal(a, b) for a, b in zip(pk + mk,
+                                                     want_p + want_m)):
+            err = max(float((a - b).abs().max())
+                      for a, b in zip(pk + mk, want_p + want_m))
+            raise AssertionError(f"fused_sgd_update {label}: not bit-equal "
+                                 f"to the plain version (max err {err})")
+        pl, ml = [t.clone() for t in ps], [t.clone() for t in ms]
+        sgd_library(pl, ml, gs, eta=0.05, beta=0.9, wd=1e-4)
+        torch.cuda.synchronize()
+        lib_err = max(float((a - b).abs().max())
+                      for a, b in zip(pl + ml, want_p + want_m))
+        if not lib_err <= 1e-5:
+            raise AssertionError(f"torch._fused_sgd_ {label}: max err "
+                                 f"{lib_err}")
+
+        def per_leaf():
+            for p, m, gr in zip(pk, mk, gs):
+                fused_sgd_update(p, m, gr, eta=1e-6, beta=0.9)
+
+        kern = lambda: fused_sgd_update_leaves(pk, mk, gs, eta=1e-6,
+                                               beta=0.9)
+        ms_, leaf_ms, plain, lib, call = (
+            tree_update_ms(torch, pk, mk, gs),
+            device_ms(torch, per_leaf, cold=True),
+            device_ms(torch, lambda: tree_sgd_update_ref(ps, ms, gs,
+                                                         eta=1e-6, beta=0.9),
+                      cold=True),
+            device_ms(torch, lambda: sgd_library(pl, ml, gs, eta=1e-6,
+                                                 beta=0.9), cold=True),
+            call_ms(torch, kern))
+        bms, by = bound_ms(20 * n, 4 * n)
+        rows[label] = {"leaves": len(ps), "elements": n, "ms": ms_,
+                       "per_leaf_ms": leaf_ms, "plain_ms": plain,
+                       "library_ms": lib, "call_ms": call, "bound_ms": bms,
+                       "bound_by": by, "launch_floor_ms": floor_ms,
+                       "max_abs_err": 0.0}
+        log(f"[kernels] fused_sgd_update {label} ({len(ps)} leaves, {n} "
+            f"elements): device {ms_ * 1e3:8.2f} us in one launch, "
+            f"{len(ps)} per-leaf launches {leaf_ms * 1e3:8.2f} us, plain "
+            f"{plain * 1e3:8.2f} us, library {lib * 1e3:8.2f} us, bound "
+            f"{bms * 1e3:8.3f} us ({by}), launch floor {floor_ms * 1e3:.2f} "
+            f"us; one call {call * 1e3:7.2f} us; bit-equal to the plain "
+            f"version")
     return rows
 
 
@@ -342,6 +492,13 @@ def small_reference_check(torch):
         if not (len(hist["cpu"]) == len(hist["cuda"]) and err <= tol):
             raise AssertionError(f"card run disagrees with the CPU run "
                                  f"({reducer}): {err}")
+
+
+def slice_data():
+    """The slice's dataset, at Table 1's size: (x (11791, 784), y)."""
+    from repro_torch.data import make_binary_classification
+
+    return make_binary_classification(n=11791, d=784, seed=0)
 
 
 def make_slice(torch, model: str, x, y, n_stages: int = 3, **backend_kw):
@@ -408,14 +565,22 @@ def run_slice(torch, model: str, x, y):
                              f"{expect}")
     if model == "logreg" and expect != 96 * 32 * (784 + 4):
         raise AssertionError("logreg ledger formula")
-    if not all(counts[k] > 0 for k in TRAIN_KERNELS):
-        raise AssertionError(f"{model}: a kernel was not launched: {counts}")
+    # one fused update per local step for the whole tree; one quantize and
+    # one dequant_mean per leaf per round
+    want = {"fused_sgd_update": rep.iters_total,
+            "quantize_kernel": rep.rounds_total * len(leaves),
+            "dequant_mean_kernel": rep.rounds_total * len(leaves)}
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{model}: launches {counts}, expected {want}")
     return counts, wall
 
 
-def profile_slice(torch, model: str, x, y, rounds: int = 4):
+def profile_slice(torch, model: str, x, y, rounds: int = 4) -> dict:
     """Phase 4b: where a round's time goes — torch.profiler over a few
-    rounds of the slice (first stage, k = 16), after one warm-up run."""
+    rounds of the slice (first stage, k = 16), after one warm-up run.
+    Returns ms per local step, kernels per step, the device's busy share
+    and, for each training kernel, its launches and device µs per launch
+    inside the step (``in_step``); only the wall without device events."""
     warm, warm_backend, _ = make_slice(torch, model, x, y, n_stages=1,
                                        max_rounds=1, chunk_rounds=1)
     warm.run(warm_backend)
@@ -434,15 +599,26 @@ def profile_slice(torch, model: str, x, y, rounds: int = 4):
             if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kern)
     n_kern = sum(e.count for e in kern)
+    out = {"steps": steps, "ms_per_step": wall * 1e3 / steps}
     if not kern:
         log(f"[profile] {model}: wall {wall * 1e3 / steps:.3f} ms per local "
             f"step; device time not measured (no CUDA events traced)")
-        return
+        return out
+    out.update(kernels_per_step=n_kern / steps,
+               busy_pct=100 * busy_us / (wall * 1e6), in_step={})
     log(f"[profile] {model}: {steps} local steps, {engine.report.rounds_total}"
         f" rounds in {wall * 1e3:.1f} ms under the profiler: "
         f"{wall * 1e3 / steps:.3f} ms per step, {n_kern / steps:.1f} kernels "
         f"per step, device busy {busy_us / 1e3:.2f} ms "
         f"({100 * busy_us / (wall * 1e6):.1f}% of wall)")
+    for name in TRAIN_KERNELS:
+        hits = [e for e in kern if name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            us = sum(e.self_device_time_total for e in hits) / count
+            out["in_step"][name] = {"launches": count, "us": us}
+            log(f"[profile]   in the step: {name} {us:.2f} us per launch "
+                f"(x{count})")
     for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
         log(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms "
             f"x{e.count:6d}  {e.key[:90]}")
@@ -451,6 +627,7 @@ def profile_slice(torch, model: str, x, y, rounds: int = 4):
     for e in sorted(host, key=lambda e: -e.self_cpu_time_total)[:8]:
         log(f"[profile]   host   {e.self_cpu_time_total / 1e3:8.3f} ms "
             f"x{e.count:6d}  {e.key[:90]}")
+    return out
 
 
 def sdpa_library(torch, q, k, v):
@@ -573,25 +750,26 @@ def check_flash(torch):
     return rows
 
 
-def ssd_work(b, S, H, P, G, N, chunk, elt):
+def ssd_work(b, S, H, P, G, N, chunk, elt, init=False):
     """(bytes, FLOPs) the SSD scan must move and compute at this shape.
 
     Bytes: x, B, C (``elt`` bytes each), dt and A read once, y written once
-    in x's type, the float32 state written once. FLOPs, per chunk of q
-    rows: C·Bᵀ once per group over the lower triangle (q(q+1)/2 pairs × N),
-    the intra-chunk product over the same pairs × P per head, the state
-    term of y (q × N × P per head, not in the first chunk, whose entering
-    state is zero) and the state update (q × P × N per head); 2 FLOPs per
-    multiply-add."""
+    in x's type, the float32 state written once (and, with ``init``, the
+    float32 initial state read once). FLOPs, per chunk of q rows: C·Bᵀ
+    once per group over the lower triangle (q(q+1)/2 pairs × N), the
+    intra-chunk product over the same pairs × P per head, the state term of
+    y (q × N × P per head; in the first chunk only from an initial state)
+    and the state update (q × P × N per head); 2 FLOPs per multiply-add."""
     Q = min(chunk, S)
     flops = 0.0
     for c in range(-(-S // Q)):
         q = min(Q, S - c * Q)
         tri = q * (q + 1) / 2
         flops += 2.0 * b * (G * tri * N + H * tri * P
-                            + (H * q * N * P if c else 0) + H * q * P * N)
+                            + (H * q * N * P if c or init else 0)
+                            + H * q * P * N)
     n_bytes = (elt * (2 * b * S * H * P + 2 * b * S * G * N)
-               + 4 * (b * S * H + H + b * H * P * N))
+               + 4 * (b * S * H + H + (2 if init else 1) * b * H * P * N))
     return n_bytes, flops
 
 
@@ -624,9 +802,10 @@ def ssd_layer_kernels_ms(torch) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def check_ssd(torch, passes_ms: dict):
+def check_ssd(torch, passes_ms: dict, labels=None):
     """Phase 8: the SSD kernel against its plain version, and its times;
-    ``passes_ms`` is ``ssd_layer_kernels_ms``'s profile of the layer call."""
+    ``passes_ms`` is ``ssd_layer_kernels_ms``'s profile of the layer call;
+    ``labels``: the cases to run (default all)."""
     from repro_torch.kernels.ssd.kernel import ssd
     from repro_torch.kernels.ssd.ref import ssd_chunked_ref, ssd_ref
 
@@ -645,33 +824,62 @@ def check_ssd(torch, passes_ms: dict):
         if not err <= 3e-4:
             raise AssertionError(f"ssd_chunked_ref vs ssd_ref {shape}: {err}")
 
-    # label: (b, S, H, P, G, N, chunk, dtype); mamba2-2.7b's layer at a
-    # 4,096-token prefill, its 4,000-token prompt (a 160-row last chunk),
-    # the Pallas test's grouped shapes, and the layer with bf16 inputs
+    # label: (b, S, H, P, G, N, chunk, dtype, from an initial state);
+    # mamba2-2.7b's layer at a 4,096-token prefill, its 4,000-token prompt
+    # (a 160-row last chunk), the Pallas test's grouped shapes, the layer
+    # with bf16 inputs, and from a non-zero initial state the layer and a
+    # short shape of two chunks
     cases = {
-        "layer": (1, 4096, 80, 64, 1, 128, 256, f32),
-        "ragged": (1, 4000, 80, 64, 1, 128, 256, f32),
-        "g2_c64": (2, 256, 4, 64, 2, 32, 64, f32),
-        "g2_c128": (2, 256, 4, 64, 2, 32, 128, f32),
-        "bf16": (1, 4096, 80, 64, 1, 128, 256, bf),
+        "layer": (1, 4096, 80, 64, 1, 128, 256, f32, False),
+        "ragged": (1, 4000, 80, 64, 1, 128, 256, f32, False),
+        "g2_c64": (2, 256, 4, 64, 2, 32, 64, f32, False),
+        "g2_c128": (2, 256, 4, 64, 2, 32, 128, f32, False),
+        "bf16": (1, 4096, 80, 64, 1, 128, 256, bf, False),
+        "layer_init": (1, 4096, 80, 64, 1, 128, 256, f32, True),
+        "init_2chunk": (2, 300, 8, 64, 1, 128, 256, f32, True),
     }
-    rows = {}
-    for label, (b, S, H, P, G, N, chunk, dt_) in cases.items():
-        args = inputs(b, S, H, P, G, N, dt_)
-        kern = lambda: ssd(*args, chunk=chunk)
-        plain = lambda: ssd_chunked_ref(*args, chunk)
-        (y, st), (yr, sr) = kern(), plain()
-        torch.cuda.synchronize()
-        # the JAX package's tolerances (tests/test_ssd_kernel.py):
-        # |d| <= tol + tol |ref| for y and the final state
-        tol = 3e-4 if dt_ == f32 else 5e-2
+
+    def off_by(pairs, tol):
+        """(max |d|, max |d| / (tol + tol |ref|)) over (got, ref) pairs:
+        the JAX package's tolerance rule (tests/test_ssd_kernel.py)."""
         err, worst = 0.0, 0.0
-        for got, ref in ((y.float(), yr), (st, sr)):
-            d = (got - ref).abs()
+        for got, ref in pairs:
+            d = (got.float() - ref).abs()
             err = max(err, float(d.max()))
             worst = max(worst, float((d / (tol + tol * ref.abs())).max()))
+        return err, worst
+
+    rows = {}
+    for label, (b, S, H, P, G, N, chunk, dt_, init) in cases.items():
+        if labels is not None and label not in labels:
+            continue
+        args = inputs(b, S, H, P, G, N, dt_)
+        # an initial state as large as a chunk's own: it reaches y and the
+        # final state. The keyword is passed only with a state, so that
+        # tools/torch_chip_ab.py can time a checkout whose scan takes none
+        h0 = (torch.randn((b, H, P, N), generator=g, device="cuda:0")
+              if init else None)
+        kw = {} if h0 is None else {"initial_state": h0}
+        kern = lambda: ssd(*args, chunk=chunk, **kw)
+        plain = lambda: ssd_chunked_ref(*args, chunk, **kw)
+        (y, st), (yr, sr) = kern(), plain()
+        if init:
+            # held to the sequential recurrence from the same state, and the
+            # plain chunked version first
+            yc, sc = yr, sr
+            yr, sr = ssd_ref(*args, initial_state=h0)
+            e, w = off_by(((yc, yr), (sc, sr)), 3e-4)
+            log(f"[ssd] {label}: plain chunked vs recurrence from the "
+                f"initial state, max err {e:.3g}, {w:.3f} of tol 3e-4")
+            if not w <= 1.0:
+                raise AssertionError(f"ssd_chunked_ref {label}: {e}")
+            del yc, sc
+        torch.cuda.synchronize()
+        tol = 3e-4 if dt_ == f32 else 5e-2
+        err, worst = off_by(((y, yr), (st, sr)), tol)
         log(f"[ssd] {label:8s} {(b, S, H, P)} G {G} N {N} chunk {chunk} "
-            f"{dt_}: max err {err:.3g}, {worst:.3f} of tol {tol}")
+            f"{dt_}{' from an initial state' if init else ''}: max err "
+            f"{err:.3g}, {worst:.3f} of tol {tol}")
         if not worst <= 1.0:
             raise AssertionError(f"ssd {label}: max err {err}")
         del y, st, yr, sr
@@ -682,12 +890,13 @@ def check_ssd(torch, passes_ms: dict):
                              reps=5 if big else TIMING_REPS)
         one = call_ms(torch, kern, reps=10 if big else TIMING_REPS)
         n_bytes, n_flops = ssd_work(b, S, H, P, G, N, chunk,
-                                    args[0].element_size())
+                                    args[0].element_size(), init)
         # the kernel's scheme: every product as three bf16 tensor-core ones
         bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS / 3)
         f32_ms = n_flops / F32_FLOPS * 1e3
         rows[label] = {"shape": [b, S, H, P, G, N], "chunk": chunk,
-                       "dtype": str(dt_), "ms": ms, "plain_ms": plain_ms,
+                       "dtype": str(dt_), "initial_state": init,
+                       "ms": ms, "plain_ms": plain_ms,
                        "call_ms": one, "library_ms": None, "bound_ms": bms,
                        "bound_by": by, "max_abs_err": err,
                        "of_tol": worst, "tflops": n_flops / ms / 1e9}
@@ -704,7 +913,7 @@ def check_ssd(torch, passes_ms: dict):
             for name, t in sorted(passes_ms.items(), key=lambda kv: -kv[1]):
                 log(f"[ssd]   kernel {t:8.4f} ms  {name}")
             rows[label]["passes_ms"] = passes_ms
-        del args
+        del args, h0, kw
     torch.cuda.empty_cache()
     return rows
 
@@ -972,7 +1181,6 @@ def main() -> int:
         print("chip_smoke: no CUDA device; the port's smoke run needs one",
               file=sys.stderr)
         return 1
-    from repro_torch.data import make_binary_classification
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False   # full float32 matmuls
@@ -990,12 +1198,12 @@ def main() -> int:
         f"{time.monotonic() - t0:.2f} s ({build.build()})")
 
     # phase 3: kernels against their plain versions
-    mlp_leaves = {"mlp w0": 784 * 96, "mlp w1": 96 * 96, "mlp b": 96,
-                  "mlp out.w": 96, "mlp out.b": 1}
-    shapes = {"logreg theta": (N_CLIENTS, 784)}
-    shapes.update({k: (N_CLIENTS, v) for k, v in mlp_leaves.items()})
-    shapes["large"] = (N_CLIENTS, 1 << 20)
-    rows = check_kernels(torch, shapes)
+    shapes = PHASE3_SHAPES
+    floor = launch_floor_ms(torch)
+    log(f"[kernels] launch floor: a kernel that returns at once takes "
+        f"{floor * 1e3:.2f} us on the device")
+    rows = check_kernels(torch, shapes, floor)
+    trees = check_trees(torch, floor)
     # the SSD layer call's kernels, profiled before any other profile of
     # the run: a profiler session that follows a large one loses device
     # events at its start (after the serving phases' profiles, all of the
@@ -1004,14 +1212,18 @@ def main() -> int:
 
     # phase 4: the slice
     small_reference_check(torch)
-    x, y = make_binary_classification(n=11791, d=784, seed=0)
+    x, y = slice_data()
     launches = {}
     for model in ("logreg", "mlp"):
         counts, _ = run_slice(torch, model, x, y)
         for k in TRAIN_KERNELS:
             launches[k] = launches.get(k, 0) + counts[k]
-    for model in ("logreg", "mlp"):
-        profile_slice(torch, model, x, y)
+    if launches["fused_sgd_update"] != 2 * 3584:
+        raise AssertionError(f"fused_sgd_update launched "
+                             f"{launches['fused_sgd_update']} times over the "
+                             f"two runs, not one per local step (7168)")
+    profiles = {model: profile_slice(torch, model, x, y)
+                for model in ("logreg", "mlp")}
 
     # phases 5-7: flash attention, then the gemma2 serving path
     flash = check_flash(torch)
@@ -1048,11 +1260,14 @@ def main() -> int:
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
+                    "launch_floor_ms": floor,
                     "shape": [N_CLIENTS, 784],
                     "large": {"shape": list(shapes["large"]),
                               "ms": big["ms"], "plain_ms": big["plain_ms"],
                               "library_ms": big["library_ms"],
                               "bound_ms": big["bound_ms"]}})
+        if kname == "fused_sgd_update":
+            out[-1]["tree"] = trees   # each whole tree, one launch
     g = flash["global"]   # gemma2-27b's global layer at the 4,608-token prefill
     out.append({"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -1072,8 +1287,8 @@ def main() -> int:
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": None, "shape": m["shape"], "shapes": ssd_rows})
-    log(json.dumps({"kernels": out, "serve": serve, "serve_mamba2": serve_m,
-                    "card": smi}))
+    log(json.dumps({"kernels": out, "slice_profile": profiles,
+                    "serve": serve, "serve_mamba2": serve_m, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

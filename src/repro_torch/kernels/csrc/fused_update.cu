@@ -1,4 +1,4 @@
-// Fused momentum-SGD update for Hopper (sm_90a).
+// Fused momentum-SGD update for Hopper (sm_90a), over many leaves at once.
 //
 // Replaces the Pallas TPU kernel src/repro/kernels/fused_update/kernel.py:33
 // (fused_sgd_update; body _upd_kernel at :21, pallas_call at :46).
@@ -6,24 +6,62 @@
 //   g += wd * p;  m' = beta * m + g;  p' = p - eta * m'
 //
 // in float32, with p' and m' written back in p's and m's own types
-// (float32 or bfloat16). The update runs IN PLACE over one flat (N * M)
-// view: the N stacked client replicas of one parameter leaf in one launch.
-// eta, beta and wd are run-time arguments (eta changes every local step),
-// where the Pallas kernel baked them in.
+// (float32 or bfloat16). The update runs IN PLACE. One launch covers a
+// whole table of leaves (each the N stacked client replicas of one
+// parameter leaf) of one (p type, m type) pair: the simulator's local step
+// updates its whole parameter tree with one launch, where the TPU path and
+// this kernel's first version launched once per leaf. eta, beta and wd are
+// run-time arguments (eta changes every local step), where the Pallas
+// kernel baked them in.
 //
 // Bound: memory. Each element reads p, m, g and writes p, m: 20 bytes in
-// float32 for 4 flops, so the kernel can at best run at 3.35 TB/s (H100 SXM
-// HBM3). At the simulator's logreg leaf, (32, 784) floats, that is 0.5 MB
-// and 0.15 us, far below a launch, so the slice's shapes are launch-bound.
-// Design: one grid-stride pass, one element per thread per iteration,
-// neighbouring threads on neighbouring addresses (coalesced); no shared
-// memory, no atomics. Built with -fmad=false so beta * m + g is not fused
-// into an FMA: the result then rounds as the plain version's does.
+// float32 for 4 flops, so the update of a tree can at best run at 3.35 TB/s
+// (H100 SXM HBM3) over 20 B x the tree's elements. The logreg tree, (32,
+// 784) floats, is 0.5 MB and 0.15 us: there the launch is the floor. The
+// MLP tree (8 leaves, 32 x 94,081 floats) moves 60 MB, 18 us at that rate;
+// inside a local step the gradient's kernels run between two updates, and
+// the update reads its p, m and g from HBM.
+//
+// Design:
+// - The leaf table travels by value as a __grid_constant__ kernel parameter
+//   (three pointers, the element count and the first tile of each leaf), so
+//   a launch needs no device allocation and no copy. A one-leaf launch
+//   takes a one-leaf table, which names its leaf at compile time: that
+//   keeps it as fast as a plain one-leaf kernel.
+// - The work is cut into tiles of THREADS vectors of 16 bytes of p (4
+//   floats or 8 bfloat16), each leaf into whole tiles; a block finds a
+//   tile's leaf by a binary search of the tile prefix. A block per tile:
+//   one wave of resident blocks with a grid stride was no faster on the MLP
+//   tree and slower on a 400 MB one (PERF.md, section 6). The logreg leaf
+//   takes 49 blocks.
+// - A thread issues all its loads (16 bytes each of p and g, and m's 8, 16
+//   or 32 bytes for the same elements) before its arithmetic. A leaf whose
+//   pointers are not all 16-byte aligned takes a scalar loop in the same
+//   launch (neighbouring threads on neighbouring elements); a vector cut by
+//   a leaf's end is done element by element.
+// - Built with -fmad=false, every operation rounded on its own, in the
+//   plain version's order: p' and m' equal it bit for bit in float32.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
+
+constexpr int MAX_LEAVES = 64;   // per launch; a longer table takes more
+constexpr int THREADS = 128;
+
+// The leaf table, passed by value (a 64-leaf table is 2.4 KB of the
+// kernel's parameter space)
+template <int CAP>
+struct LeafTable {
+  void* p[CAP];
+  void* m[CAP];
+  const void* g[CAP];
+  int64_t n[CAP];
+  int tile0[CAP + 1];           // first tile of each leaf; then the total
+  unsigned char aligned[CAP];   // p, m and g all 16-byte aligned
+  int n_leaves;
+};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -38,56 +76,158 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
 }
 
-template <typename TP, typename TM>
-__global__ void fused_sgd_update_kernel(TP* __restrict__ p,
-                                        TM* __restrict__ m,
-                                        const TP* __restrict__ g, int64_t n,
+__device__ __forceinline__ float update(float& pv, float mv, float gv,
                                         float eta, float beta, float wd) {
-  const int64_t stride = (int64_t)blockDim.x * gridDim.x;
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float pv = to_f32(p[i]);
-    float gv = to_f32(g[i]);
-    if (wd != 0.0f) gv = __fadd_rn(gv, __fmul_rn(wd, pv));
-    const float m2 = __fadd_rn(__fmul_rn(beta, to_f32(m[i])), gv);
-    const float p2 = __fsub_rn(pv, __fmul_rn(eta, m2));
-    p[i] = from_f32<TP>(p2);
-    m[i] = from_f32<TM>(m2);
+  if (wd != 0.0f) gv = __fadd_rn(gv, __fmul_rn(wd, pv));
+  const float m2 = __fadd_rn(__fmul_rn(beta, mv), gv);
+  pv = __fsub_rn(pv, __fmul_rn(eta, m2));
+  return m2;
+}
+
+// V elements of type T as raw 16-byte words (V * sizeof(T) is 8, 16 or 32
+// bytes): loaded and stored whole, unpacked to float32 in registers
+template <typename T, int V>
+struct Vec {
+  static constexpr int WORDS = (V * (int)sizeof(T) + 15) / 16;
+  static constexpr int BYTES = V * (int)sizeof(T);
+  uint4 w[WORDS];
+  __device__ __forceinline__ void load(const T* src) {
+    if constexpr (BYTES == 8) {
+      const uint2 u = *reinterpret_cast<const uint2*>(src);
+      w[0] = make_uint4(u.x, u.y, 0u, 0u);
+    } else {
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i)
+        w[i] = reinterpret_cast<const uint4*>(src)[i];
+    }
+  }
+  __device__ __forceinline__ void store(T* dst) const {
+    if constexpr (BYTES == 8) {
+      *reinterpret_cast<uint2*>(dst) = make_uint2(w[0].x, w[0].y);
+    } else {
+#pragma unroll
+      for (int i = 0; i < WORDS; ++i) reinterpret_cast<uint4*>(dst)[i] = w[i];
+    }
+  }
+  __device__ __forceinline__ T* elems() { return reinterpret_cast<T*>(w); }
+  __device__ __forceinline__ const T* elems() const {
+    return reinterpret_cast<const T*>(w);
+  }
+};
+
+template <typename TP, typename TM, int CAP>
+__global__ void __launch_bounds__(THREADS)
+fused_sgd_update_kernel(const __grid_constant__ LeafTable<CAP> t, float eta,
+                        float beta, float wd) {
+  constexpr int V = 16 / (int)sizeof(TP);   // elements per thread per tile
+  constexpr int TILE = THREADS * V;
+  const int tile = blockIdx.x;
+  int lo = 0;   // the leaf holding this tile (a constant for one leaf)
+  if constexpr (CAP > 1) {
+    int hi = t.n_leaves - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (t.tile0[mid] <= tile) lo = mid; else hi = mid - 1;
+    }
+  }
+  TP* p = static_cast<TP*>(t.p[lo]);
+  TM* m = static_cast<TM*>(t.m[lo]);
+  const TP* g = static_cast<const TP*>(t.g[lo]);
+  const int64_t n = t.n[lo];
+  const int64_t base = (int64_t)(tile - t.tile0[lo]) * TILE;
+  const int64_t e0 = base + (int64_t)threadIdx.x * V;
+  if (t.aligned[lo] && e0 + V <= n) {
+    Vec<TP, V> pv, gv;
+    Vec<TM, V> mv;
+    pv.load(p + e0);
+    mv.load(m + e0);
+    gv.load(g + e0);
+#pragma unroll
+    for (int k = 0; k < V; ++k) {
+      float pk = to_f32(pv.elems()[k]);
+      const float m2 = update(pk, to_f32(mv.elems()[k]),
+                              to_f32(gv.elems()[k]), eta, beta, wd);
+      pv.elems()[k] = from_f32<TP>(pk);
+      mv.elems()[k] = from_f32<TM>(m2);
+    }
+    pv.store(p + e0);
+    mv.store(m + e0);
+  } else {
+    // a leaf that is not 16-byte aligned: the whole tile element by
+    // element, neighbouring threads on neighbouring elements; an aligned
+    // leaf's vector cut by its end: that vector's elements
+    const bool whole = !t.aligned[lo];
+    const int64_t first = whole ? base + threadIdx.x : e0;
+    const int64_t step = whole ? THREADS : 1;
+    int64_t end = whole ? base + TILE : e0 + V;
+    if (end > n) end = n;
+    for (int64_t i = first; i < end; i += step) {
+      float pk = to_f32(p[i]);
+      const float m2 = update(pk, to_f32(m[i]), to_f32(g[i]), eta, beta, wd);
+      p[i] = from_f32<TP>(pk);
+      m[i] = from_f32<TM>(m2);
+    }
   }
 }
 
+// Build the table of rows (p, m, g, n as int64 words) and launch.
+template <typename TP, typename TM, int CAP>
+cudaError_t launch(const int64_t* leaves, int n_leaves, float eta, float beta,
+                   float wd, cudaStream_t stream) {
+  constexpr int64_t TILE = THREADS * (16 / (int)sizeof(TP));
+  LeafTable<CAP> t;
+  t.n_leaves = n_leaves;
+  int64_t tiles = 0;
+  for (int l = 0; l < n_leaves; ++l) {
+    const int64_t* row = leaves + 4 * l;
+    if (row[3] <= 0) return cudaErrorInvalidValue;
+    t.p[l] = reinterpret_cast<void*>(row[0]);
+    t.m[l] = reinterpret_cast<void*>(row[1]);
+    t.g[l] = reinterpret_cast<const void*>(row[2]);
+    t.n[l] = row[3];
+    t.aligned[l] = ((row[0] | row[1] | row[2]) & 15) == 0;
+    t.tile0[l] = (int)tiles;
+    tiles += (row[3] + TILE - 1) / TILE;
+    if (tiles > INT32_MAX) return cudaErrorInvalidValue;
+  }
+  t.tile0[n_leaves] = (int)tiles;
+  fused_sgd_update_kernel<TP, TM, CAP>
+      <<<(unsigned)tiles, THREADS, 0, stream>>>(t, eta, beta, wd);
+  return cudaGetLastError();
+}
+
+// a one-leaf table for one leaf, else a full one
 template <typename TP, typename TM>
-void launch(void* p, void* m, const void* g, int64_t n, float eta, float beta,
-            float wd, cudaStream_t stream) {
-  const int threads = 256;
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;  // grid-stride beyond that
-  if (blocks < 1) blocks = 1;
-  fused_sgd_update_kernel<TP, TM><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<TP*>(p), static_cast<TM*>(m), static_cast<const TP*>(g), n,
-      eta, beta, wd);
+cudaError_t launch_cap(const int64_t* leaves, int n_leaves, float eta,
+                       float beta, float wd, cudaStream_t stream) {
+  if (n_leaves == 1)
+    return launch<TP, TM, 1>(leaves, 1, eta, beta, wd, stream);
+  return launch<TP, TM, MAX_LEAVES>(leaves, n_leaves, eta, beta, wd, stream);
 }
 
 }  // namespace
 
-// dtype codes: 0 = float32, 1 = bfloat16. g has p's type.
+// leaves: n_leaves rows of four int64 words (p, m, g pointers, element
+// count), 1 <= n_leaves <= 64, every count > 0; g has p's type. dtype
+// codes: 0 = float32, 1 = bfloat16. One launch for the whole table.
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
-extern "C" int repro_fused_sgd_update(void* p, void* m, const void* g,
-                                      int64_t n, int p_dtype, int m_dtype,
-                                      float eta, float beta, float wd,
-                                      void* stream) {
-  if (n <= 0) return (int)cudaErrorInvalidValue;
+extern "C" int repro_fused_sgd_update(const int64_t* leaves, int n_leaves,
+                                      int p_dtype, int m_dtype, float eta,
+                                      float beta, float wd, void* stream) {
+  if (n_leaves < 1 || n_leaves > MAX_LEAVES) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (p_dtype == 0 && m_dtype == 0) {
-    launch<float, float>(p, m, g, n, eta, beta, wd, s);
+    err = launch_cap<float, float>(leaves, n_leaves, eta, beta, wd, s);
   } else if (p_dtype == 0 && m_dtype == 1) {
-    launch<float, __nv_bfloat16>(p, m, g, n, eta, beta, wd, s);
+    err = launch_cap<float, __nv_bfloat16>(leaves, n_leaves, eta, beta, wd, s);
   } else if (p_dtype == 1 && m_dtype == 0) {
-    launch<__nv_bfloat16, float>(p, m, g, n, eta, beta, wd, s);
+    err = launch_cap<__nv_bfloat16, float>(leaves, n_leaves, eta, beta, wd, s);
   } else if (p_dtype == 1 && m_dtype == 1) {
-    launch<__nv_bfloat16, __nv_bfloat16>(p, m, g, n, eta, beta, wd, s);
+    err = launch_cap<__nv_bfloat16, __nv_bfloat16>(leaves, n_leaves, eta, beta,
+                                                   wd, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return (int)err;
 }

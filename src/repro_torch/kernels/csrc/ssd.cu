@@ -3,14 +3,16 @@
 // Replaces the Pallas TPU kernel src/repro/kernels/ssd/kernel.py:68
 // (ssd_chunked_kernel; body _ssd_kernel at :20-65, pallas_call at :82).
 // For each batch row b and head h (B/C group g = h / (H / G)), over chunks
-// of Q rows, from a zero state (P x N):
+// of Q rows, from a zero state or the caller's initial state (P x N):
 //
 //   cums_i  = sum_{k <= i} dt_k * A_h                  inclusive, per chunk
 //   y_i     = sum_{j <= i} (C_i . B_j) exp(cums_i - cums_j) dt_j x_j
 //           + exp(cums_i) C_i . state                  (state entering it)
 //   state   = exp(cums_last) state + sum_j exp(cums_last - cums_j) dt_j x_j B_j^T
 //
-// and the final state is written after the last chunk. float32 or bfloat16
+// and the final state is written after the last chunk. An initial state
+// enters chunk 0 as the state passed from a previous chunk enters the
+// others; without one chunk 0 has no state term. float32 or bfloat16
 // x / B / C are read as float32 and y is written in x's type. The decay is
 // selected, never multiplied by a mask: for i < j the exponent is positive
 // and may overflow, and inf * 0 is NaN.
@@ -287,7 +289,8 @@ constexpr size_t chunk_smem_bytes() {
 //      registers (ldmatrix .trans of the x dt tile), B MN-major, one
 //      warpgroup per 64 columns of N (at N <= 64 warpgroup 1 waits).
 //   3. State passing: wait until the block of chunk c - 1 has written the
-//      state entering chunk c (its flag in sync), write
+//      state entering chunk c (its flag in sync; chunk 0 enters with the
+//      initial state, or with none), write
 //      exp(cums_last) S_in + S_c into states[b][c][h] (after the
 //      last chunk the final state into state_out), raise this chunk's
 //      flag, and split S_in into a K-major tile ([p][n]).
@@ -305,6 +308,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                  const float* __restrict__ A, const T* __restrict__ Bm,
                  const T* __restrict__ Cm, const float* __restrict__ cb,
                  float* __restrict__ states, int* __restrict__ sync,
+                 const float* __restrict__ init,
                  T* __restrict__ y, float* __restrict__ state_out, int S,
                  int H, int P, int G, int Q, int QP) {
   constexpr int NB = (N + 63) / 64;          // 64-column boxes of N
@@ -424,16 +428,17 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     }
     __syncthreads();
   }
-  // states[bi][k][h] is the state entering chunk k + 1 (chunk 0 enters
-  // with zeros); the last chunk writes the final state into state_out
+  // states[bi][k][h] is the state entering chunk k + 1; chunk 0 enters
+  // with init[bi][h] or, without it, with none (no state term). The last
+  // chunk writes the final state into state_out
   auto entering = [&](int k) {
     return states + (((long long)bi * (nc - 1) + k) * H + h) * P * N +
            (long long)p0 * N;
   };
-  const float* sin = c > 0 ? entering(c - 1) : nullptr;
-  float* so = c + 1 < nc ? entering(c)
-                         : state_out + ((long long)bi * H + h) * P * N +
-                               (long long)p0 * N;
+  const long long own = ((long long)bi * H + h) * P * N + (long long)p0 * N;
+  const float* sin = c > 0 ? entering(c - 1) : init ? init + own : nullptr;
+  const bool has_in = sin != nullptr;   // uniform across the block
+  float* so = c + 1 < nc ? entering(c) : state_out + own;
   const float dec = expf(clast);
   // sacc[4 n + e]: row m0 + lane / 4 (+ 8 for e >= 2), column 64 wg + 8 n +
   // 2 (lane % 4) + e % 2
@@ -446,7 +451,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int r = 0; r < 2; ++r) {
         const int row = m0 + gr + 8 * r, e = row * N + col;
         float2 v = make_float2(0.f, 0.f);
-        if (c > 0) {
+        if (has_in) {
           v = __ldcg(reinterpret_cast<const float2*>(sin + e));
           uint32_t hi, lo;
           split2(v.x, v.y, hi, lo);
@@ -477,7 +482,7 @@ ssd_chunk_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     for (int e = 0; e < 32; ++e) acc[e] = 0.f;
     uint32_t ah[2][4], al[2][4];   // A fragments, double-buffered
 
-    if (c > 0) {
+    if (has_in) {
       // C's fragments straight from global memory (each element is read by
       // one warp of the block)
       const float2 z2 = make_float2(0.f, 0.f);
@@ -604,9 +609,9 @@ cudaError_t set_smem(K kernel, size_t bytes) {
 
 template <typename T, int N>
 int launch(const void* x, const void* dt, const void* A, const void* B,
-           const void* C, void* cb, void* states, void* sync, void* y,
-           void* state, int b, int S, int H, int P, int G, int Q,
-           cudaStream_t stream) {
+           const void* C, void* cb, void* states, void* sync,
+           const void* init, void* y, void* state, int b, int S, int H,
+           int P, int G, int Q, cudaStream_t stream) {
   const int nc = (S + Q - 1) / Q, ntq = (Q + CT - 1) / CT, QP = ntq * CT;
   const int npt = (P + PT - 1) / PT;
   cudaError_t err;
@@ -631,26 +636,27 @@ int launch(const void* x, const void* dt, const void* A, const void* B,
     return (int)err;
   ssd_chunk_kernel<T, N><<<dim3(H, nc, b * npt), THREADS,
                            chunk_smem_bytes<T, N>(), stream>>>(
-      xt, dtf, Af, Bt, Ct, cbf, stf, syncp, static_cast<T*>(y),
+      xt, dtf, Af, Bt, Ct, cbf, stf, syncp, static_cast<const float*>(init),
+      static_cast<T*>(y),
       static_cast<float*>(state), S, H, P, G, Q, QP);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_n(const void* x, const void* dt, const void* A, const void* B,
-             const void* C, void* cb, void* states, void* sync, void* y,
-             void* state, int b, int S, int H, int P, int G, int N, int Q,
-             cudaStream_t s) {
+             const void* C, void* cb, void* states, void* sync,
+             const void* init, void* y, void* state, int b, int S, int H,
+             int P, int G, int N, int Q, cudaStream_t s) {
   switch (N) {
     case 16:
-      return launch<T, 16>(x, dt, A, B, C, cb, states, sync, y, state, b, S,
-                           H, P, G, Q, s);
+      return launch<T, 16>(x, dt, A, B, C, cb, states, sync, init, y, state,
+                           b, S, H, P, G, Q, s);
     case 32:
-      return launch<T, 32>(x, dt, A, B, C, cb, states, sync, y, state, b, S,
-                           H, P, G, Q, s);
+      return launch<T, 32>(x, dt, A, B, C, cb, states, sync, init, y, state,
+                           b, S, H, P, G, Q, s);
     case 128:
-      return launch<T, 128>(x, dt, A, B, C, cb, states, sync, y, state, b, S,
-                            H, P, G, Q, s);
+      return launch<T, 128>(x, dt, A, B, C, cb, states, sync, init, y, state,
+                            b, S, H, P, G, Q, s);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -660,7 +666,9 @@ int launch_n(const void* x, const void* dt, const void* A, const void* B,
 
 // x (b, S, H, P) and y (b, S, H, P) of type dtype (0 = float32, 1 =
 // bfloat16), dt (b, S, H) and A (H,) float32, B and C (b, S, G, N) of type
-// dtype, state (b, H, P, N) float32; all contiguous and 16-byte aligned.
+// dtype, state (b, H, P, N) float32; init null (a zero state) or (b, H,
+// P, N) float32, the state entering the first chunk; all contiguous and
+// 16-byte aligned.
 // Scratch: cb of b * G * nc * QP^2 floats (nc = ceil(S / Q), QP = Q
 // rounded up to a multiple of 64), states of b * (nc - 1) * H * P * N
 // floats (none at nc = 1), sync of 1 + b * ceil(P / 64) * H * nc ints
@@ -670,18 +678,18 @@ int launch_n(const void* x, const void* dt, const void* A, const void* B,
 // stream; returns the first CUDA error (0 = success).
 extern "C" int repro_ssd(const void* x, const void* dt, const void* A,
                          const void* B, const void* C, void* cb, void* states,
-                         void* sync, void* y, void* state, int b, int S,
-                         int H, int P, int G, int N, int Q, int dtype,
-                         void* stream) {
+                         void* sync, const void* init, void* y, void* state,
+                         int b, int S, int H, int P, int G, int N, int Q,
+                         int dtype, void* stream) {
   if (b <= 0 || S <= 0 || H <= 0 || P <= 0 || P % 16 != 0 || G <= 0 ||
       H % G != 0 || Q <= 0 || Q > QMAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_n<float>(x, dt, A, B, C, cb, states, sync, y, state, b, S,
-                           H, P, G, N, Q, s);
+    return launch_n<float>(x, dt, A, B, C, cb, states, sync, init, y, state,
+                           b, S, H, P, G, N, Q, s);
   if (dtype == 1)
-    return launch_n<__nv_bfloat16>(x, dt, A, B, C, cb, states, sync, y,
+    return launch_n<__nv_bfloat16>(x, dt, A, B, C, cb, states, sync, init, y,
                                    state, b, S, H, P, G, N, Q, s);
   return (int)cudaErrorInvalidValue;
 }

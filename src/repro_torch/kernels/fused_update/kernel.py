@@ -3,16 +3,22 @@
 Replaces the Pallas TPU kernel ``src/repro/kernels/fused_update/kernel.py:33``
 (``fused_sgd_update``). The kernel is memory-bound: 20 bytes per float32
 element (3 reads, 2 writes), so its bound on an H100 SXM is bytes ÷
-3.35 TB/s; the simulator's leaves are small enough that one launch costs
-more than that bound. One launch covers a whole stacked (N, …) leaf.
+3.35 TB/s, summed over the leaves of a launch. One launch covers a table of
+up to ``MAX_LEAVES`` stacked (N, …) leaves of one (p type, m type) pair:
+the simulator's local step updates its whole tree in one launch, since at
+its shapes a launch costs more than the bytes. The table goes to the
+kernel by value, as a kernel parameter: no device allocation, no copy.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels.build import check, library
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_LEAVES = 64   # the kernel's leaf table; a longer list takes more launches
 
 
 def check_inputs(p, m, g):
@@ -38,27 +44,51 @@ def check_inputs(p, m, g):
         raise ValueError("fused_sgd_update: empty tensors")
 
 
-def fused_sgd_update(p, m, g, *, eta: float, beta: float = 0.0,
-                     wd: float = 0.0):
-    """In place: p ← p − η·(β·m + g + wd·p), m ← β·m + g + wd·p.
+def fused_sgd_update_leaves(ps, ms, gs, *, eta: float, beta: float = 0.0,
+                            wd: float = 0.0):
+    """In place on every leaf: p ← p − η·(β·m + g + wd·p), m ← β·m + g +
+    wd·p.
 
-    CUDA tensors of one shape, float32 or bfloat16 p and m (g of p's type),
-    contiguous. Returns (p, m), the same tensors, updated.
+    ``ps``, ``ms``, ``gs``: equal-length sequences of CUDA tensors, each
+    (p, m, g) of one shape, float32 or bfloat16 p and m (g of p's type),
+    contiguous; any alignment. Every leaf is checked before anything
+    launches. One launch per (p type, m type, device) group and per
+    ``MAX_LEAVES`` leaves of it.
     """
-    check_inputs(p, m, g)
-    if p.device.type != "cuda":
-        raise ValueError(f"fused_sgd_update: the kernel takes CUDA tensors, "
-                         f"got {p.device}")
+    if not len(ps) == len(ms) == len(gs):
+        raise ValueError(f"fused_sgd_update: {len(ps)} p, {len(ms)} m, "
+                         f"{len(gs)} g leaves")
+    groups = {}
+    for p, m, g in zip(ps, ms, gs):
+        check_inputs(p, m, g)
+        if p.device.type != "cuda":
+            raise ValueError(f"fused_sgd_update: the kernel takes CUDA "
+                             f"tensors, got {p.device}")
+        groups.setdefault((p.dtype, m.dtype, p.device), []).append(
+            (p.data_ptr(), m.data_ptr(), g.data_ptr(), p.numel()))
+    for (pt, mt, dev), rows in groups.items():
+        for i in range(0, len(rows), MAX_LEAVES):
+            _launch(rows[i:i + MAX_LEAVES], pt, mt, dev, eta, beta, wd)
+
+
+def _launch(rows, p_dtype, m_dtype, device, eta, beta, wd):
+    table = (ctypes.c_int64 * (4 * len(rows)))(*(v for r in rows for v in r))
     lib = library()
-    with torch.cuda.device(p.device):
-        stream = torch.cuda.current_stream(p.device).cuda_stream
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.repro_fused_sgd_update(
-            p.data_ptr(), m.data_ptr(), g.data_ptr(), p.numel(),
-            _DTYPE_CODE[p.dtype], _DTYPE_CODE[m.dtype], float(eta),
-            float(beta), float(wd), stream)
+            table, len(rows), _DTYPE_CODE[p_dtype], _DTYPE_CODE[m_dtype],
+            float(eta), float(beta), float(wd), stream)
     fused_sgd_update.launches += 1
     check(status, "fused_sgd_update")
+
+
+def fused_sgd_update(p, m, g, *, eta: float, beta: float = 0.0,
+                     wd: float = 0.0):
+    """The update of one leaf, in place: one launch of the same kernel.
+    Returns (p, m), the same tensors, updated."""
+    fused_sgd_update_leaves([p], [m], [g], eta=eta, beta=beta, wd=wd)
     return p, m
 
 
-fused_sgd_update.launches = 0
+fused_sgd_update.launches = 0   # every launch of the kernel, any table

@@ -8,7 +8,7 @@ from __future__ import annotations
 
 from repro_torch.kernels.fused_update import ref as R
 from repro_torch.kernels.fused_update.kernel import (check_inputs,
-                                                     fused_sgd_update)
+                                                     fused_sgd_update_leaves)
 from repro_torch.utils.tree import tree_flatten
 
 
@@ -18,22 +18,32 @@ def sgd_update_(p, m, g, *, eta: float, beta: float = 0.0, wd: float = 0.0):
     Returns (p, m). On CUDA the update is one kernel launch over the whole
     (possibly stacked) leaf.
     """
-    if p.device.type == "cuda":
-        return fused_sgd_update(p, m, g, eta=eta, beta=beta, wd=wd)
-    if p.device.type != "cpu":
-        raise ValueError(f"sgd_update_: no route for device {p.device}")
-    check_inputs(p, m, g)
-    p2, m2 = R.sgd_update_ref(p, m, g, eta=eta, beta=beta, wd=wd)
-    p.copy_(p2)
-    m.copy_(m2)
-    return p, m
+    return tree_sgd_update_(p, m, g, eta=eta, beta=beta, wd=wd)
 
 
 def tree_sgd_update_(params, moments, grads, *, eta, beta=0.0, wd=0.0):
-    """Fused update over a whole parameter tree, in place, leaf by leaf."""
+    """Fused update over a whole parameter tree, in place.
+
+    On CUDA one kernel launch updates every leaf (per (p type, m type)
+    pair and per 64 leaves); on the CPU the plain version does, leaf by
+    leaf. Returns (params, moments), the same trees.
+    """
     flat_p, treedef = tree_flatten(params)
     flat_m = treedef.flatten_up_to(moments)
     flat_g = treedef.flatten_up_to(grads)
+    kinds = {p.device.type for p in flat_p}
+    if kinds == {"cuda"}:
+        fused_sgd_update_leaves(flat_p, flat_m, flat_g, eta=eta, beta=beta,
+                                wd=wd)
+        return params, moments
+    if kinds != {"cpu"}:
+        raise ValueError(f"tree_sgd_update_: no route for leaves on "
+                         f"{sorted(kinds)}")
     for p, m, g in zip(flat_p, flat_m, flat_g):
-        sgd_update_(p, m, g, eta=eta, beta=beta, wd=wd)
+        check_inputs(p, m, g)
+    new_p, new_m = R.tree_sgd_update_ref(flat_p, flat_m, flat_g, eta=eta,
+                                         beta=beta, wd=wd)
+    for p, m, p2, m2 in zip(flat_p, flat_m, new_p, new_m):
+        p.copy_(p2)
+        m.copy_(m2)
     return params, moments

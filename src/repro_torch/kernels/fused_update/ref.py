@@ -23,3 +23,12 @@ def sgd_update_ref(p, m, g, *, eta: float, beta: float = 0.0,
     m2 = beta * m.to(torch.float32) + g32
     p2 = p.to(torch.float32) - eta * m2
     return p2.to(p.dtype), m2.to(m.dtype)
+
+
+def tree_sgd_update_ref(ps, ms, gs, *, eta: float, beta: float = 0.0,
+                        wd: float = 0.0):
+    """``sgd_update_ref`` over lists of leaves: returns new lists (p', m');
+    nothing given is modified. The plain version of one multi-leaf launch."""
+    out = [sgd_update_ref(p, m, g, eta=eta, beta=beta, wd=wd)
+           for p, m, g in zip(ps, ms, gs)]
+    return [p for p, _ in out], [m for _, m in out]

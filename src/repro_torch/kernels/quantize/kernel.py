@@ -7,9 +7,10 @@ once per client). Bound: 9 bytes per element (float32 in, uint32 bits in,
 int8 out) over 3.35 TB/s.
 
 ``dequant_mean_kernel`` replaces ``src/repro/kernels/quantize/kernel.py:98``:
-one thread per column sums the N clients in order in float32, with no
-(N, M) float32 intermediate and no atomics. Bound: 1 byte per code in plus
-4 bytes per column out, over 3.35 TB/s.
+each thread sums the N clients of 4 adjacent columns in order in float32,
+one 4-byte load per client row, 32 rows in flight, with no (N, M) float32
+intermediate and no atomics. Bound: 1 byte
+per code in plus 4 bytes per column out, over 3.35 TB/s.
 
 The TPU path's (32, 128) int8 tile check has no counterpart: the CUDA
 kernels index elements directly and take any M.

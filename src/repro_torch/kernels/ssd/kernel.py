@@ -1,10 +1,10 @@
 """Launcher of the Hopper SSD chunked-scan kernel (``csrc/ssd.cu``).
 
 Replaces the Pallas TPU kernel ``src/repro/kernels/ssd/kernel.py:68``
-(``ssd_chunked_kernel``): Mamba2's SSD scan from a zero state, y and the
-final state, at float32 accuracy. Per head and chunk the work is the lower
-triangle of ``(C·Bᵀ ∘ L)·(x·dt)``, the state term of y and the chunk's
-state, about 16 GFLOP per mamba2-2.7b layer at 4,096 tokens against
+(``ssd_chunked_kernel``): Mamba2's SSD scan from a zero or a given
+initial state, y and the final state, at float32 accuracy. Per head and
+chunk the work is the lower triangle of ``(C·Bᵀ ∘ L)·(x·dt)``, the state
+term of y and the chunk's state, about 16 GFLOP per mamba2-2.7b layer at 4,096 tokens against
 176 MB moved. The kernel runs every product on the tensor cores as three
 bf16 products (a hi/lo split), so its bound on an H100 SXM is the larger
 of the bytes over 3.35 TB/s and three times the work over 989 TFLOP/s.
@@ -26,7 +26,7 @@ P_MULTIPLE = 16     # the kernel's m16 tiles of P
 MAX_CHUNK = 256     # one cumulative-sum row per thread of a block
 
 
-def check_inputs(x, dt, A, B, C, chunk: int):
+def check_inputs(x, dt, A, B, C, chunk: int, initial_state=None):
     """Raise on shapes the scan does not define (both routes)."""
     for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
         if not isinstance(t, torch.Tensor):
@@ -48,10 +48,20 @@ def check_inputs(x, dt, A, B, C, chunk: int):
     if S < 1 or chunk < 1:
         raise ValueError(f"ssd: needs S >= 1 and chunk >= 1, got S={S}, "
                          f"chunk={chunk}")
+    if initial_state is not None:
+        want = (b, H, P, B.shape[3])
+        if not isinstance(initial_state, torch.Tensor) or \
+                tuple(initial_state.shape) != want or \
+                initial_state.dtype != torch.float32 or \
+                initial_state.device != x.device:
+            raise ValueError(f"ssd: initial_state must be a float32 tensor "
+                             f"of shape {want} on {x.device}")
 
 
-def ssd(x, dt, A, B, C, *, chunk: int = 128):
-    """x: (b,S,H,P)  dt: (b,S,H) f32  A: (H,) f32  B,C: (b,S,G,N).
+def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    """x: (b,S,H,P)  dt: (b,S,H) f32  A: (H,) f32  B,C: (b,S,G,N);
+    initial_state: None (a zero state) or (b,H,P,N) f32, which the first
+    chunk reads as the state entering it.
 
     Returns y (b,S,H,P) in x's type and the final state (b,H,P,N) float32,
     chunks of Q = min(chunk, S) rows. CUDA tensors only, contiguous and
@@ -59,7 +69,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
     of 16, N in ``D_STATES``, Q at most 256. Anything else raises; nothing
     falls back.
     """
-    check_inputs(x, dt, A, B, C, chunk)
+    check_inputs(x, dt, A, B, C, chunk, initial_state)
     if x.device.type != "cuda":
         raise ValueError(f"ssd: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
@@ -78,7 +88,10 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
         raise ValueError(f"ssd: state dim {N} not in {D_STATES}")
     if Q > MAX_CHUNK:
         raise ValueError(f"ssd: chunk {Q} exceeds {MAX_CHUNK}")
-    for name, t in (("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)):
+    named = [("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)]
+    if initial_state is not None:
+        named.append(("initial_state", initial_state))
+    for name, t in named:
         if not t.is_contiguous():
             raise ValueError(f"ssd: {name} is not contiguous")
         if t.data_ptr() % 16:   # the kernel loads 16-byte vectors
@@ -101,6 +114,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128):
         status = lib.repro_ssd(
             x.data_ptr(), dt.data_ptr(), A.data_ptr(), B.data_ptr(),
             C.data_ptr(), cb.data_ptr(), states.data_ptr(), sync.data_ptr(),
+            None if initial_state is None else initial_state.data_ptr(),
             y.data_ptr(), state.data_ptr(), b, S, H, P, G, N, Q,
             _DTYPE_CODE[x.dtype], stream)
     ssd.launches += 1

@@ -11,16 +11,17 @@ from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref as R
 
 
-def ssd(x, dt, A, B, C, *, chunk: int = 128):
-    """x: (b,S,H,P)  dt: (b,S,H)  A: (H,)  B,C: (b,S,G,N), G dividing H.
+def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
+    """x: (b,S,H,P)  dt: (b,S,H)  A: (H,)  B,C: (b,S,G,N), G dividing H;
+    initial_state: None (a zero state) or (b,H,P,N) float32.
 
     Returns y (b,S,H,P) in x's type (float32 math) and the final state
-    (b,H,P,N) float32, from a zero state, chunks of min(chunk, S) rows.
+    (b,H,P,N) float32, chunks of min(chunk, S) rows.
     """
     if x.device.type == "cuda":
-        return K.ssd(x, dt, A, B, C, chunk=chunk)
+        return K.ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cpu":
         raise ValueError(f"ssd: no route for device {x.device}")
-    K.check_inputs(x, dt, A, B, C, chunk)
-    y, state = R.ssd_chunked_ref(x, dt, A, B, C, chunk)
+    K.check_inputs(x, dt, A, B, C, chunk, initial_state)
+    y, state = R.ssd_chunked_ref(x, dt, A, B, C, chunk, initial_state)
     return y.to(x.dtype), state

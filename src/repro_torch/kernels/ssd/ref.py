@@ -45,8 +45,9 @@ def ssd_ref(x, dt, A, B, C, initial_state=None):
     return torch.stack(ys, dim=1), h
 
 
-def ssd_chunked_ref(x, dt, A, B, C, chunk: int):
-    """The chunked scan from a zero state, chunks of Q = min(chunk, S) rows.
+def ssd_chunked_ref(x, dt, A, B, C, chunk: int, initial_state=None):
+    """The chunked scan, chunks of Q = min(chunk, S) rows, from
+    ``initial_state`` (b,H,P,N) or, if None, from a zero state.
 
     x: (b,S,H,P)  dt: (b,S,H)  A: (H,)  B,C: (b,S,G,N), G dividing H.
     Returns y (b,S,H,P) float32 and the final state (b,H,P,N) float32.
@@ -86,7 +87,8 @@ def ssd_chunked_ref(x, dt, A, B, C, chunk: int):
     states = torch.einsum("bcshp,bcshn,bchs->bchpn", xdt, Bc, seg_end)
     chunk_decay = torch.exp(cums[..., -1])                # (b,nc,H)
 
-    state = torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+    state = (torch.zeros((b, H, P, N), dtype=torch.float32, device=x.device)
+             if initial_state is None else initial_state.float())
     entering = []
     for c in range(nc):
         entering.append(state)

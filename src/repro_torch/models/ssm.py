@@ -11,10 +11,13 @@ slots).
 
 The cache holds the conv carry (the last ``d_conv - 1`` conv inputs) and
 the SSM state (H, P, N) in float32: O(1) in the sequence length. It is
-written in place, as the attention caches are. A multi-token call scans
-from a zero state, as a prefill from an empty cache does (the transformer's
-``prefill`` zeroes a reused row first); the JAX model would continue from
-``cache["state"]`` instead.
+written in place, as the attention caches are. A multi-token call with a
+cache continues from both, as the JAX model does: the conv from its carry,
+the scan from ``cache["state"]`` as its initial state. So a prompt fed in
+pieces ends where the whole prompt does. The transformer's ``prefill``
+zeroes a reused row first and says so (``fresh``): its scan then takes
+no initial state, the kernel's path without a state term, with the same
+result.
 """
 from __future__ import annotations
 
@@ -85,9 +88,11 @@ def _causal_conv(x, w, carry=None):
     return F.silu(out), xp[:, -(K - 1):]
 
 
-def apply_mamba2(params, cfg: ArchConfig, x, cache=None):
+def apply_mamba2(params, cfg: ArchConfig, x, cache=None, fresh=False):
     """x: (B,S,d). cache: None or {"conv": (B,K-1,ch), "state": (B,H,P,N)},
-    updated in place. Returns (out (B,S,d), cache)."""
+    updated in place; ``fresh``: the caller has just zeroed the cache (a
+    prefill), so the conv pads with zeros and the scan starts from no state
+    instead of reading them. Returns (out (B,S,d), cache)."""
     check_supported(cfg)
     ssm = cfg.ssm
     d_inner, n_heads, _, _ = _dims(cfg)
@@ -97,7 +102,7 @@ def apply_mamba2(params, cfg: ArchConfig, x, cache=None):
     z, xs, Bc, Cc, dt = _split_in_proj(cfg, zxbcdt)
 
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
-    conv_carry = None if cache is None else cache["conv"]
+    conv_carry = None if cache is None or fresh else cache["conv"]
     conv_out, new_conv = _causal_conv(conv_in, params["conv_w"], conv_carry)
     xs = conv_out[..., :d_inner].reshape(B_, S, n_heads, ssm.head_dim)
     Bc = conv_out[..., d_inner:d_inner + gN].reshape(
@@ -111,8 +116,10 @@ def apply_mamba2(params, cfg: ArchConfig, x, cache=None):
         # the kernel's inputs: float32 and contiguous, so y is float32 as
         # the JAX model's is
         f32 = lambda t: t.float().contiguous()
+        init = None if cache is None or fresh else f32(cache["state"])
         y, final_state = ssd(f32(xs), dt.contiguous(), A.contiguous(),
-                             f32(Bc), f32(Cc), chunk=ssm.chunk_size)
+                             f32(Bc), f32(Cc), chunk=ssm.chunk_size,
+                             initial_state=init)
     else:
         # single-token recurrent decode: state' = exp(dt·A)·state + dt·x Bᵀ
         st = cache["state"].float()                          # (B,H,P,N)

@@ -115,10 +115,11 @@ def init_params(cfg: ArchConfig, *, seed: int, device=None):
 # ---------------------------------------------------------------------------
 
 def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
-                 cache_pos=None):
+                 cache_pos=None, fresh=False):
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "M":
-        out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache)
+        out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache,
+                                  fresh=fresh)
         return x + out
     att_out, cache = A.apply_attention(p["attn"], cfg, h, pos_q,
                                        is_local=(kind == "L"), cache=cache,
@@ -129,11 +130,11 @@ def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
 
 
 def _run_stack(params, cfg: ArchConfig, x, pos_q, caches=None,
-               cache_pos=None):
+               cache_pos=None, fresh=False):
     for i, kind in enumerate(cfg.layer_kinds()):
         c = caches[i] if caches is not None else None
         x = _apply_layer(params["layers"][i], cfg, kind, x, pos_q, c,
-                         cache_pos)
+                         cache_pos, fresh)
     return x
 
 
@@ -221,8 +222,9 @@ def prefill(params, cfg: ArchConfig, tokens, cache):
             c["conv"].zero_()
             c["state"].zero_()
     # a one-token prompt takes the decode branch at position 0 (from the
-    # zeroed state in a Mamba2 layer)
-    x = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"])
+    # zeroed state in a Mamba2 layer); a longer one scans from no state
+    x = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"],
+                   fresh=True)
     cache["pos"].fill_(S)
     return _logits(params, cfg, x), cache
 

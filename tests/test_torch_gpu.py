@@ -7,15 +7,19 @@ runs on the machine with the card:
     PYTHONPATH=src python -m pytest -q -m gpu tests/test_torch_gpu.py
 
 Tolerances as the CPU parity tests state them: the fused update 1e-6 in
-float32 and 1e-2 in bfloat16, quantize codes exactly equal, dequant_mean
-1e-6. Flash attention: 1e-5 in float32 (the kernel sums the same float32
-products in another order); in bfloat16 the tolerance of
+float32 and 1e-2 in bfloat16 (the multi-leaf launch: bit-equal to the
+plain version in float32, since both round every operation on its own in
+the same order), quantize codes exactly equal, dequant_mean 1e-6. Flash
+attention: 1e-5 in float32 (the kernel sums the same float32 products in
+another order); in bfloat16 the tolerance of
 ``kernels/flash_attention/ref.py`` (elementwise 5e-3 + 1e-2 |ref|, each
 query row of each head within 1e-2 of its norm). The SSD scan: the JAX
 package's own tolerances (``tests/test_ssd_kernel.py``), 3e-4 in float32
 for y and the final state, 5e-2 for y from bfloat16 inputs (y is rounded
 to bfloat16).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -24,8 +28,11 @@ from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                      bf16_mismatch)
-from repro_torch.kernels.fused_update.kernel import fused_sgd_update
-from repro_torch.kernels.fused_update.ref import sgd_update_ref
+from repro_torch.kernels.fused_update.kernel import (MAX_LEAVES,
+                                                     fused_sgd_update)
+from repro_torch.kernels.fused_update.ops import tree_sgd_update_
+from repro_torch.kernels.fused_update.ref import (sgd_update_ref,
+                                                  tree_sgd_update_ref)
 from repro_torch.kernels.quantize import ops as TQ
 from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
                                                 quantize_kernel)
@@ -58,6 +65,97 @@ def test_fused_update_matches_plain(cuda, shape, dtype):
     tol = 1e-6 if dtype == torch.float32 else 1e-2
     torch.testing.assert_close(p.float(), pr.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(m, mr, atol=tol, rtol=tol)
+
+
+_DTYPE_PAIRS = [(torch.float32, torch.float32),
+                (torch.float32, torch.bfloat16),
+                (torch.bfloat16, torch.float32),
+                (torch.bfloat16, torch.bfloat16)]
+_LENGTHS = [1, 3, 5, 96, 75264]
+
+
+def _tree(dev, n_leaves, p_dtype, m_dtype, seed=0):
+    """n_leaves (p, m, g) leaves cycling through _LENGTHS, stacked over 4
+    clients for the longer ones; leaf 1 (where there is one) is a
+    contiguous view at an odd element offset, so its base is not 16-byte
+    aligned."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ps, ms, gs = [], [], []
+    for i in range(n_leaves):
+        n = _LENGTHS[i % len(_LENGTHS)]
+        shape = (4, n) if n > 5 else (n,)
+        off = 1 if i == 1 else 0
+        make = lambda dt: torch.randn(off + math.prod(shape), generator=g,
+                                      device=dev).to(dt)[off:].view(shape)
+        ps.append(make(p_dtype))
+        ms.append(make(m_dtype))
+        gs.append(make(p_dtype))
+    return ps, ms, gs
+
+
+@pytest.mark.parametrize("p_dtype, m_dtype", _DTYPE_PAIRS)
+@pytest.mark.parametrize("n_leaves", [1, 8, MAX_LEAVES + 3])
+def test_multi_leaf_update_matches_plain(cuda, n_leaves, p_dtype, m_dtype):
+    ps, ms, gs = _tree(cuda, n_leaves, p_dtype, m_dtype)
+    if n_leaves > 1:
+        assert ps[1].data_ptr() % 16 and ms[1].data_ptr() % 16
+    want_p, want_m = tree_sgd_update_ref(ps, ms, gs, eta=0.05, beta=0.9,
+                                         wd=1e-4)
+    before = fused_sgd_update.launches
+    out = tree_sgd_update_(ps, ms, gs, eta=0.05, beta=0.9, wd=1e-4)
+    torch.cuda.synchronize()
+    assert out[0] is ps
+    assert fused_sgd_update.launches == before + -(-n_leaves // MAX_LEAVES)
+    for got, want in zip(ps + ms, want_p + want_m):
+        if got.dtype == torch.float32:
+            assert torch.equal(got, want)
+        else:
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-2,
+                                       rtol=1e-2)
+
+
+def test_multi_leaf_update_of_the_mlp_tree_is_one_launch(cuda):
+    # the simulator's MLP tree, 8 leaves stacked over 32 clients, float32:
+    # one launch per local step, bit-equal to the plain version
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_leaves, tree_map
+    p0 = mlp.init_params(784, width=96, depth=3, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    rand = lambda t: torch.randn((32,) + tuple(t.shape), generator=g,
+                                 device=cuda)
+    params, moms, grads = (tree_map(rand, p0) for _ in range(3))
+    assert len(tree_leaves(params)) == 8
+    want_p, want_m = tree_sgd_update_ref(
+        tree_leaves(params), tree_leaves(moms), tree_leaves(grads), eta=0.5,
+        beta=0.9)
+    before = fused_sgd_update.launches
+    tree_sgd_update_(params, moms, grads, eta=0.5, beta=0.9)
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 1
+    for got, want in zip(tree_leaves(params) + tree_leaves(moms),
+                         want_p + want_m):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("M", [1, 96, 785, 1 << 20])
+@pytest.mark.parametrize("N", [1, 3, 32, 33])
+def test_dequant_mean_matches_plain_at_any_shape(cuda, N, M):
+    g = torch.Generator(device=cuda).manual_seed(N * 7 + M)
+    q = torch.randint(-127, 128, (N, M), dtype=torch.int8, generator=g,
+                      device=cuda)
+    s = torch.rand((N,), generator=g, device=cuda) + 0.01
+    before = dequant_mean_kernel.launches
+    mean = dequant_mean_kernel(q, s)
+    torch.cuda.synchronize()
+    assert dequant_mean_kernel.launches == before + 1
+    assert mean.shape == (M,) and mean.dtype == torch.float32
+    torch.testing.assert_close(mean, dequant_mean_ref(q, s), atol=1e-6,
+                               rtol=1e-6)
+    # a view at an odd offset: every row is read byte by byte
+    qv = torch.empty(N * M + 1, dtype=torch.int8, device=cuda)[1:]
+    qv.copy_(q.reshape(-1))
+    torch.testing.assert_close(dequant_mean_kernel(qv.view(N, M), s), mean,
+                               atol=0, rtol=0)
 
 
 @pytest.mark.parametrize("bits", [8, 4])
@@ -241,18 +339,23 @@ SSD_CASES = [
 ]
 
 
+@pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("case", SSD_CASES)
-def test_ssd_matches_plain(cuda, case, dtype):
+def test_ssd_matches_plain(cuda, case, dtype, init):
     b, S, H, P, G, N, chunk = case
     x, dt, A, B, C = _ssd_inputs(cuda, b, S, H, P, G, N, dtype)
+    h0 = None
+    if init:   # a state as large as a chunk's: the first chunk reads it
+        g = torch.Generator(device=cuda).manual_seed(S)
+        h0 = torch.randn((b, H, P, N), generator=g, device=cuda)
     before = SSD.ssd.launches
-    y, st = SSD.ssd(x, dt, A, B, C, chunk=chunk)
+    y, st = SSD.ssd(x, dt, A, B, C, chunk=chunk, initial_state=h0)
     torch.cuda.synchronize()
     assert SSD.ssd.launches == before + 1
     assert y.dtype == dtype and y.shape == x.shape
     assert st.dtype == torch.float32 and st.shape == (b, H, P, N)
-    yr, sr = ssd_chunked_ref(x, dt, A, B, C, chunk)
+    yr, sr = ssd_chunked_ref(x, dt, A, B, C, chunk, h0)
     tol = 3e-4 if dtype == torch.float32 else 5e-2
     torch.testing.assert_close(y.float(), yr, atol=tol, rtol=tol)
     torch.testing.assert_close(st, sr, atol=tol, rtol=tol)
@@ -303,6 +406,16 @@ def test_ssd_raises_on_unsupported_inputs(cuda):
         SSD.ssd(*_ssd_inputs(cuda, 1, 300, 2, 16, 1, 16), chunk=300)
     with pytest.raises(TypeError):                       # mixed types
         SSD.ssd(x, dt, A, B.bfloat16(), C)
+    h0 = torch.zeros(1, 4, 32, 16, device=cuda)
+    with pytest.raises(ValueError):                      # a CPU state
+        SSD.ssd(x, dt, A, B, C, initial_state=h0.cpu())
+    with pytest.raises(ValueError):                      # a strided state
+        SSD.ssd(x, dt, A, B, C,
+                initial_state=torch.zeros(1, 4, 16, 32,
+                                          device=cuda).transpose(2, 3))
+    off = torch.zeros(1 + h0.numel(), device=cuda)[1:].view(h0.shape)
+    with pytest.raises(ValueError, match="aligned"):     # 4-byte aligned
+        SSD.ssd(x, dt, A, B, C, initial_state=off)
 
 
 def test_simulator_runs_through_the_kernels(cuda):
@@ -323,7 +436,7 @@ def test_simulator_runs_through_the_kernels(cuda):
                         mlp.init_params(32, width=16, depth=3), data, cfg,
                         lambda p: mlp.full_objective(p, xt, yt, 1e-3))
     counts = K.launch_counts()
-    assert counts["fused_sgd_update"] == 8 * 48       # 8 leaves x 48 steps
+    assert counts["fused_sgd_update"] == 48       # one launch per step
     assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] == 8 * 8
     vals = np.array([r.value for r in hist])
     assert np.isfinite(vals).all() and vals[-1] < 0.9 * vals[0]

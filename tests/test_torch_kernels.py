@@ -20,8 +20,10 @@ from repro.kernels.quantize import ops as JQ
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import kernel as FA
 from repro_torch.kernels.fused_update import ops as TF
-from repro_torch.kernels.fused_update.kernel import fused_sgd_update
-from repro_torch.kernels.fused_update.ref import sgd_update_ref
+from repro_torch.kernels.fused_update.kernel import (fused_sgd_update,
+                                                     fused_sgd_update_leaves)
+from repro_torch.kernels.fused_update.ref import (sgd_update_ref,
+                                                  tree_sgd_update_ref)
 from repro_torch.kernels.quantize import ops as TQ
 from repro_torch.kernels.quantize import ref as TQR
 from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
@@ -74,6 +76,57 @@ def test_fused_update_tree_in_place_and_ref_pure():
     torch.testing.assert_close(params["a"], p2, rtol=0, atol=0)
     torch.testing.assert_close(moms["a"], m2, rtol=0, atol=0)
     torch.testing.assert_close(params["b"], torch.full((256,), 1.9))
+
+
+@pytest.mark.parametrize("p_dtype, m_dtype", [("float32", "float32"),
+                                              ("bfloat16", "float32"),
+                                              ("float32", "bfloat16")])
+def test_tree_update_equals_jax_leaf_by_leaf(p_dtype, m_dtype):
+    """The MLP's 8 leaves (lengths 1 to 75,264, some not a multiple of 4)
+    stacked over 3 clients: the tree route (on the CPU the plain
+    ``tree_sgd_update_ref``) against JAX's update of each leaf."""
+    lengths = [96, 784 * 96, 96, 96 * 96, 96, 96 * 96, 1, 96]
+    jp, jm = _DT[p_dtype][0], _DT[m_dtype][0]
+    tp, tm = _DT[p_dtype][1], _DT[m_dtype][1]
+    trees = {"p": [], "m": [], "g": []}
+    want = []
+    for i, n in enumerate(lengths):
+        p, m, g = (a.reshape(1, n).repeat(3, 0) * (1 + np.arange(3))[:, None]
+                   for a in _pmg(n, seed=i))
+        pj, mj = j_sgd_update(jnp.asarray(p).astype(jp),
+                              jnp.asarray(m).astype(jm),
+                              jnp.asarray(g).astype(jp), eta=0.1, beta=0.9,
+                              wd=1e-4, impl="xla")
+        want.append((np.asarray(pj, np.float32), np.asarray(mj, np.float32)))
+        for k, a, dt in (("p", p, tp), ("m", m, tm), ("g", g, tp)):
+            trees[k].append(torch.from_numpy(a.copy()).to(dt))
+    ref_p, ref_m = tree_sgd_update_ref(trees["p"], trees["m"], trees["g"],
+                                       eta=0.1, beta=0.9, wd=1e-4)
+    TF.tree_sgd_update_(trees["p"], trees["m"], trees["g"], eta=0.1,
+                        beta=0.9, wd=1e-4)
+    for (pj, mj), pt, mt, pr, mr in zip(want, trees["p"], trees["m"], ref_p,
+                                        ref_m):
+        assert torch.equal(pt, pr) and torch.equal(mt, mr)
+        tol = 1e-6 if p_dtype == m_dtype == "float32" else 1e-2
+        np.testing.assert_allclose(pt.float().numpy(), pj, atol=tol, rtol=tol)
+        np.testing.assert_allclose(mt.float().numpy(), mj, atol=tol, rtol=tol)
+
+
+def test_multi_leaf_launcher_refuses_before_any_launch():
+    """Every leaf is checked before anything launches: CPU leaves, lists
+    of unequal length, and a tree whose leaves sit on two devices raise
+    and count nothing."""
+    K.reset_launch_counts()
+    x = torch.zeros(4, 8)
+    with pytest.raises(ValueError):
+        fused_sgd_update_leaves([x], [x.clone()], [x.clone()], eta=0.1)
+    with pytest.raises(ValueError):
+        fused_sgd_update_leaves([x, x], [x], [x], eta=0.1)
+    meta = torch.zeros(4, 8, device="meta")
+    with pytest.raises(ValueError, match="no route"):
+        TF.tree_sgd_update_([x, meta], [x.clone(), meta], [x.clone(), meta],
+                            eta=0.1)
+    assert fused_sgd_update.launches == 0
 
 
 @pytest.mark.parametrize("bad", ["dtype", "g_dtype", "shape",

@@ -106,6 +106,31 @@ def test_ssd_ref_with_initial_state_matches_jax(S):
     np.testing.assert_allclose(st.numpy(), np.asarray(sr), **TOL)
 
 
+@pytest.mark.parametrize("S, chunk", [(100, 64), (200, 64), (37, 64)])
+@pytest.mark.parametrize("G", [1, 2])
+def test_chunked_scan_from_an_initial_state_matches_jax_ref(S, chunk, G):
+    """The chunked scan continues from a given state: the CPU route of
+    ``ssd`` (``ssd_chunked_ref``) against JAX's ``ssd_ref`` and the port's
+    sequential ``ssd_ref`` with the same initial state, at ragged S."""
+    arrays = _inputs(2, S, 4, 32, G, 16, seed=S + G)
+    init = (np.random.RandomState(S).randn(2, 4, 32, 16) * 0.5) \
+        .astype(np.float32)
+    yj, sj = j_ssd_ref(*_jax(arrays), initial_state=jnp.asarray(init))
+    x, dt, A, B, C = _torch(arrays)
+    t_init = torch.from_numpy(init.copy())
+    y, st = ssd(x, dt, A, B, C, chunk=chunk, initial_state=t_init)
+    yc, sc = ssd_chunked_ref(x, dt, A, B, C, chunk, t_init)
+    yr, sr = ssd_ref(x, dt, A, B, C, initial_state=t_init)
+    assert torch.equal(t_init, torch.from_numpy(init))    # read, not written
+    assert torch.equal(y, yc) and torch.equal(st, sc)
+    for want_y, want_s in ((yj, sj), (yr.numpy(), sr.numpy())):
+        np.testing.assert_allclose(y.numpy(), np.asarray(want_y), **TOL)
+        np.testing.assert_allclose(st.numpy(), np.asarray(want_s), **TOL)
+    # control: the state matters at these inputs
+    y0, _ = ssd(x, dt, A, B, C, chunk=chunk)
+    assert not np.allclose(y0.numpy(), np.asarray(yj), **TOL)
+
+
 def test_chunked_ref_short_chunk_equals_the_recurrence():
     """One chunk shorter than Q, and a chunk of one row."""
     for S, chunk in ((37, 64), (5, 1)):
@@ -128,6 +153,16 @@ def test_ssd_refuses_shapes_the_scan_does_not_define():
     with pytest.raises(ValueError):                      # the kernel: CUDA only
         SK.ssd(x, dt, A, B, C)
     assert SK.ssd.launches == 0
+
+
+@pytest.mark.parametrize("bad", ["heads", "dtype", "device"])
+def test_ssd_refuses_an_initial_state_of_another_shape_or_type(bad):
+    x, dt, A, B, C = _torch(_inputs(1, 64, 4, 32, 2, 16))
+    init = {"heads": torch.zeros(1, 2, 32, 16),
+            "dtype": torch.zeros(1, 4, 32, 16, dtype=torch.float64),
+            "device": torch.zeros(1, 4, 32, 16, device="meta")}[bad]
+    with pytest.raises(ValueError, match="initial_state"):
+        ssd(x, dt, A, B, C, initial_state=init)
 
 
 # ---------------------------------------------------------------------------
@@ -177,6 +212,73 @@ def test_apply_mamba2_prefill_and_decode_match_jax(model):
     assert none is None
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                rtol=1e-5)
+
+
+def _mamba2_layer(jcfg, seed=1):
+    jp = JSSM.init_mamba2(jax.random.key(seed), jcfg, jnp.float32)
+    # A_log, dt_bias and D away from their init values, so decay, step and
+    # skip all vary by head
+    rng = np.random.RandomState(seed)
+    jp = dict(jp, A_log=jnp.asarray(rng.randn(*jp["A_log"].shape) * 0.5,
+                                    jnp.float32),
+              dt_bias=jnp.asarray(rng.randn(*jp["dt_bias"].shape) * 0.5,
+                                  jnp.float32))
+    return jp, params_from_jax(jax.tree.map(np.asarray, jp), "cpu")
+
+
+@pytest.mark.parametrize("S", [2, 40, 64])
+def test_apply_mamba2_continues_from_a_cached_state_like_jax(model, S):
+    """A multi-token call (S <= chunk, which JAX's chunked scan takes) on a
+    cache that holds a non-zero SSM state and conv carry: output and both
+    cache parts equal JAX's to 1e-5 (float32, sums in another order)."""
+    jcfg, tcfg, _, _ = model
+    jp, tp = _mamba2_layer(jcfg)
+    rng = np.random.RandomState(S)
+    jc = JSSM.init_mamba2_cache(jcfg, 2, jnp.float32)
+    conv = (rng.randn(*jc["conv"].shape) * 0.5).astype(np.float32)
+    state = (rng.randn(*jc["state"].shape) * 0.5).astype(np.float32)
+    x = rng.randn(2, S, jcfg.d_model).astype(np.float32)
+    want, jc = JSSM.apply_mamba2(jp, jcfg, jnp.asarray(x),
+                                 cache={"conv": jnp.asarray(conv),
+                                        "state": jnp.asarray(state)})
+    tc = {"conv": torch.from_numpy(conv.copy()),
+          "state": torch.from_numpy(state.copy())}
+    got, tc = TSSM.apply_mamba2(tp, tcfg, torch.from_numpy(x), cache=tc)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
+    for key in ("conv", "state"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("split", [1, 24, 40])
+def test_prompt_in_two_pieces_equals_the_whole_prompt(model, split):
+    """The layer fed x[:, :split] then x[:, split:] through one cache ends
+    where x fed at once does (outputs and cache to 1e-5: the chunks fall
+    elsewhere), and each piece equals JAX's call on the same cache."""
+    jcfg, tcfg, _, _ = model
+    jp, tp = _mamba2_layer(jcfg, seed=2)
+    x = np.random.RandomState(split).randn(2, 64, jcfg.d_model) \
+        .astype(np.float32)
+    whole, wc = TSSM.apply_mamba2(
+        tp, tcfg, torch.from_numpy(x),
+        cache=TSSM.init_mamba2_cache(tcfg, 2, torch.float32))
+    tc = TSSM.init_mamba2_cache(tcfg, 2, torch.float32)
+    jc = JSSM.init_mamba2_cache(jcfg, 2, jnp.float32)
+    outs = []
+    for piece in (x[:, :split], x[:, split:]):
+        want, jc = JSSM.apply_mamba2(jp, jcfg, jnp.asarray(piece), cache=jc)
+        got, tc = TSSM.apply_mamba2(tp, tcfg, torch.from_numpy(piece),
+                                    cache=tc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+        outs.append(got)
+    torch.testing.assert_close(torch.cat(outs, dim=1), whole, atol=1e-5,
+                               rtol=1e-5)
+    for key in ("conv", "state"):
+        torch.testing.assert_close(tc[key], wc[key], atol=1e-5, rtol=1e-5)
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   atol=1e-5, rtol=1e-5)
 
 
 def test_forward_matches_jax(model):
@@ -268,6 +370,32 @@ def test_one_token_and_reused_rows_start_from_zero_state(model):
         b, _ = TTF.decode_step(tp, tcfg, step[:1], fresh)
         torch.testing.assert_close(a[1:2], b, atol=1e-6, rtol=1e-6)
         assert stacked["pos"].tolist()[1] == S + 1
+
+
+def test_prefill_scans_from_no_state_and_a_cached_call_from_the_cache(
+        model, monkeypatch):
+    """``prefill`` zeroes the row and scans without an initial state (the
+    kernel's path without a state term); a later multi-token call on the
+    same cache hands the scan the cached state."""
+    _, tcfg, _, tp = model
+    seen = []
+
+    def spy(*args, initial_state=None, **kw):
+        seen.append(None if initial_state is None else initial_state.clone())
+        return ssd(*args, initial_state=initial_state, **kw)
+
+    monkeypatch.setattr(TSSM, "ssd", spy)
+    cache = TTF.init_cache(tcfg, 1, 64, device="cpu")
+    prompt = torch.from_numpy(_tokens(tcfg, 1, 30, seed=9)).long()
+    TTF.prefill(tp, tcfg, prompt, cache)
+    n_mamba = tcfg.layer_kinds().count("M")
+    assert len(seen) == n_mamba and all(s is None for s in seen)
+    layer = tp["layers"][0]["mamba"]
+    x = torch.from_numpy(np.random.RandomState(9).randn(1, 5, tcfg.d_model)
+                         .astype(np.float32))
+    state = cache["layers"][0]["state"].clone()
+    TSSM.apply_mamba2(layer, tcfg, x, cache=cache["layers"][0])
+    assert torch.equal(seen[-1], state) and bool(state.abs().max() > 0)
 
 
 def test_init_params_layout_matches_jax():
