@@ -12,9 +12,12 @@ failure propagates, so the script exits non-zero and prints no result.
      (one ``nvcc`` per source, in parallel) and loads them.
   3. Kernels against their plain PyTorch versions on the card, at the
      slice's shapes — the logreg leaf (32, 784), the MLP's leaves — and at
-     one large shape, (32, 2^20), where the memory bound shows: int8 and
-     int4 codes exactly equal, the fused update to 1e-6 (float32) and
-     1e-2 (bfloat16), dequant_mean to 1e-6. Each kernel is timed from a
+     one large shape, (32, 2^20), where the memory bound shows: int8, int4
+     and int2 codes exactly equal, both from y as the slice passes it (the
+     kernel's 16-byte vector instantiation) and from a copy of y at an odd
+     offset (its scalar instantiation, timed beside the vector one as
+     ``quantize_kernel odd view``), the fused update to 1e-6 (float32)
+     and 1e-2 (bfloat16), dequant_mean to 1e-6. Each kernel is timed from a
      cold L2 (256 MB read before each launch, CUDA events around the
      launch alone; the median over 25 samples of 10) beside its bound
      (bytes it must move over the 3.35 TB/s of HBM, or its float32
@@ -22,7 +25,10 @@ failure propagates, so the script exits non-zero and prints no result.
      time and, for the fused update, the time of the one PyTorch call that
      computes the same function (``torch._fused_sgd_``, the op behind
      ``torch.optim.SGD(fused=True)``), held to the plain version first,
-     all timed the same way. Then the update of each whole tree the slice
+     all timed the same way; beside them, each kernel's time for one call
+     as the caller sees it (events around the call) and its wrapper's
+     host time a call (the host clock around 100 calls in a row, with no
+     synchronisation between them). Then the update of each whole tree the slice
      steps — the logreg tree (one leaf) and the MLP tree (8 leaves, 3.0 M
      floats) — through ``tree_sgd_update_``, as the local step calls it:
      one launch, bit-equal to the plain version, timed beside its bound
@@ -178,6 +184,24 @@ def call_ms(torch, fn, reps: int = TIMING_REPS) -> float:
     return statistics.median(samples)
 
 
+def host_ms(torch, fn, calls: int = 100, reps: int = TIMING_REPS) -> float:
+    """Median host time of one call: the host clock around ``calls`` calls
+    made back to back with no synchronisation between them, over their
+    count — the wrapper's own cost (checks, allocation, launch), since
+    the device's queue absorbs the kernels."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        samples.append((time.perf_counter() - t0) / calls)
+        torch.cuda.synchronize()
+    return statistics.median(samples) * 1e3
+
+
 def device_ms(torch, fn, batch: int = 10, reps: int = TIMING_REPS,
               cold: bool = False) -> float:
     """Median device time of one call: ``reps`` samples, each a batch of
@@ -277,15 +301,20 @@ def check_kernels(torch, shapes, floor_ms=None):
         rb = torch.randint(-2 ** 31, 2 ** 31, (N, M), dtype=torch.int32,
                            generator=g, device=dev)
         s = compute_scale(y, dim=1)
+        # y at an odd offset of a flat buffer: its rows are not 16-byte
+        # aligned, so quantize takes its scalar instantiation
+        yv = torch.empty(n + 1, device=dev)[1:].view(N, M)
+        yv.copy_(y)
         err_d = 0.0
-        for bits in (8, 4):
-            q = quantize_kernel(y, rb, s, bits=bits)
+        for bits in (8, 4, 2):
             qr = quantize_ref(y, rb, s[:, None], bits=bits)
-            torch.cuda.synchronize()
-            if not torch.equal(q, qr):
-                raise AssertionError(
-                    f"quantize {label} int{bits}: "
-                    f"{int((q != qr).sum())} codes differ")
+            for how, yk in (("", y), (" odd view", yv)):
+                q = quantize_kernel(yk, rb, s, bits=bits)
+                torch.cuda.synchronize()
+                if not torch.equal(q, qr):
+                    raise AssertionError(
+                        f"quantize{how} {label} int{bits}: "
+                        f"{int((q != qr).sum())} codes differ")
             mean = dequant_mean_kernel(q, s, bits=bits)
             mr = dequant_mean_ref(q, s, bits=bits)
             torch.cuda.synchronize()
@@ -308,29 +337,35 @@ def check_kernels(torch, shapes, floor_ms=None):
                 lambda: quantize_kernel(y, rb, s, bits=8),
                 lambda: quantize_ref(y, rb, s[:, None], bits=8),
                 None, bound_ms(9 * n + 4 * N, 6 * n), 0.0),
+            "quantize_kernel odd view": (
+                lambda: quantize_kernel(yv, rb, s, bits=8),
+                lambda: quantize_ref(yv, rb, s[:, None], bits=8),
+                None, bound_ms(9 * n + 4 * N, 6 * n), 0.0),
             "dequant_mean_kernel": (
                 lambda: dequant_mean_kernel(q, s, bits=8),
                 lambda: dequant_mean_ref(q, s, bits=8),
                 None, bound_ms(n + 4 * N + 4 * M, 2 * n + N), err_d),
         }
         for name, (kf, pf, lf, (bms, by), err) in fns.items():
-            ms, plain, call = (device_ms(torch, kf, cold=True),
-                               device_ms(torch, pf, cold=True),
-                               call_ms(torch, kf))
+            ms, plain, call, host = (device_ms(torch, kf, cold=True),
+                                     device_ms(torch, pf, cold=True),
+                                     call_ms(torch, kf), host_ms(torch, kf))
             lib = (device_ms(torch, lf, cold=True) if lf is not None
                    else None)
             rows[(name, label)] = {"ms": ms, "plain_ms": plain,
-                                   "call_ms": call, "library_ms": lib,
+                                   "call_ms": call, "host_ms": host,
+                                   "library_ms": lib,
                                    "bound_ms": bms, "bound_by": by,
                                    "launch_floor_ms": floor_ms,
                                    "max_abs_err": err}
             lib_txt = "-" if lib is None else f"{lib * 1e3:.2f} us"
             floor_txt = ("" if floor_ms is None
                          else f", launch floor {floor_ms * 1e3:.2f} us")
-            log(f"[kernels] {name:20s} {label:13s} ({N}, {M}): device "
+            log(f"[kernels] {name:24s} {label:13s} ({N}, {M}): device "
                 f"{ms * 1e3:8.2f} us, plain {plain * 1e3:8.2f} us, library "
                 f"{lib_txt}, bound {bms * 1e3:8.3f} us ({by}){floor_txt}; "
-                f"one call {call * 1e3:7.2f} us; max_abs_err {err:.3g}")
+                f"one call {call * 1e3:7.2f} us, host {host * 1e3:6.2f} us "
+                f"a call; max_abs_err {err:.3g}")
     return rows
 
 
@@ -1268,6 +1303,10 @@ def main() -> int:
                               "bound_ms": big["bound_ms"]}})
         if kname == "fused_sgd_update":
             out[-1]["tree"] = trees   # each whole tree, one launch
+        if kname == "quantize_kernel":   # the scalar instantiation
+            out[-1]["odd_view"] = {
+                label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
+                for label in shapes}
     g = flash["global"]   # gemma2-27b's global layer at the 4,608-token prefill
     out.append({"name": "flash_attention", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",

@@ -16,9 +16,28 @@
 // bits >= 2^32 - 128 give u = 1.0 exactly as on the reference. The bits
 // arrive as int32 and are read as uint32.
 // Bound: memory. 4 B of y + 4 B of bits in, 1 B of code out per element
-// (9 B); (32, 784) is 0.23 MB, 0.07 us at 3.35 TB/s: launch-bound.
-// Design: one grid-stride pass, coalesced, the row's scale read per
-// element (it stays in L1).
+// (9 B); (32, 784) is 0.23 MB, 0.07 us at 3.35 TB/s: launch-bound;
+// (32, 2^20) is 302 MB, 90.15 us.
+// Design: a 2-D grid, blockIdx.y over rows and blockIdx.x over column
+// tiles, so a thread finds its row, the row's offset and its scale once
+// per row, and no element pays a 64-bit division of its index. Each
+// thread keeps 8 elements in flight: two float4 loads of y and two uint4
+// loads of bits, a warp's each 512 contiguous bytes, all issued before the
+// first division, then two 4-byte stores of codes. A block is 128
+// threads on one row's tile of 1,024 columns, also for short rows: a
+// block that took several short rows left the small leaves on fewer SMs
+// and ran slower. Rows that are not 16-byte aligned (M % 4 != 0, or a
+// view at an odd offset) take an all-scalar instantiation: 8 single
+// elements a thread, 128 apart.
+// __fdiv_rn stays per element: y * (1 / s) rounds differently.
+// Measured on an NVIDIA H100 80GB HBM3 at 700.00 W (chip_smoke.py phase
+// 3, cold L2): 101.2 us at (32, 2^20) (1.12x the bound; 101.6 us from an
+// odd-offset y), 12.4 us at (32, 75264), 6.1 us at (32, 784) against a
+// 5.0 us launch floor; 1.7 and 2.0 us a launch inside the logreg and MLP
+// local steps. 16 elements a thread (72 registers, 121 in the scalar
+// instantiation), 16 contiguous elements with one 16-byte store, 64- or
+// 256-thread blocks, and blocks that took several short rows each ran
+// slower (PERF.md, section 6).
 //
 // dequant_mean replaces src/repro/kernels/quantize/kernel.py:98
 // (dequant_mean_kernel; body _deq_kernel at :92, pallas_call at :110):
@@ -47,22 +66,83 @@
 
 namespace {
 
-__global__ void quantize_kernel(const float* __restrict__ y,
-                                const uint32_t* __restrict__ bits,
-                                const float* __restrict__ scales,
-                                int8_t* __restrict__ q, int64_t rows,
-                                int64_t cols, float qmax) {
-  const int64_t n = rows * cols;
-  const int64_t stride = (int64_t)blockDim.x * gridDim.x;
+constexpr int Q_THREADS = 128;   // threads a block
+constexpr int Q_VECS = 2;        // 16-byte vectors of y (and of bits) a thread
+constexpr int Q_EPT = 4 * Q_VECS;   // elements a thread
+// column offsets inside a row are 32-bit: a row, plus a tile past its end,
+// stays below 2^31
+constexpr int64_t Q_MAX_COLS = INT32_MAX - Q_THREADS * Q_EPT;
+
+// One element's code, as the low byte of a word. Each operation rounds on
+// its own, in the reference's order.
+__device__ __forceinline__ uint32_t quant_code(float y, uint32_t b, float s,
+                                               float qmax) {
   const float inv_2_32 = 2.3283064365386963e-10f;  // 2^-32, exact
-  for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += stride) {
-    const float s = scales[i / cols];
-    const float v = __fmul_rn(__fdiv_rn(y[i], s), qmax);
-    const float u = __fmul_rn(__uint2float_rn(bits[i]), inv_2_32);
-    float c = floorf(__fadd_rn(v, u));
-    c = fminf(fmaxf(c, -qmax), qmax);
-    q[i] = (int8_t)c;
+  const float v = __fmul_rn(__fdiv_rn(y, s), qmax);
+  const float u = __fmul_rn(__uint2float_rn(b), inv_2_32);
+  const float c = fminf(fmaxf(floorf(__fadd_rn(v, u)), -qmax), qmax);
+  return (uint32_t)(int)c & 0xFFu;
+}
+
+// A block covers a tile of Q_THREADS * Q_EPT columns of one row;
+// blockIdx.x picks the tile, blockIdx.y the row (a row stride beyond
+// 65,535 rows). The row's offset and scale are found once per row, the
+// columns indexed with 32-bit offsets.
+// VEC (cols % 4 == 0, y and bits 16-byte aligned, q 4-byte aligned): the
+// thread's Q_VECS groups of 4 columns lie Q_THREADS groups apart, so each
+// load instruction of a warp reads 512 contiguous bytes and each store
+// writes 128; a row of a multiple of 4 columns has no partial group. Else
+// Q_EPT single elements Q_THREADS apart. All of a thread's loads are
+// issued before its first division.
+template <bool VEC>
+__global__ void __launch_bounds__(Q_THREADS)
+quantize_kernel(const float* __restrict__ y, const uint32_t* __restrict__ bits,
+                const float* __restrict__ scales, int8_t* __restrict__ q,
+                int64_t rows, int cols, float qmax) {
+  const int tile = blockIdx.x * (Q_THREADS * Q_EPT);
+  const int t = threadIdx.x;
+  for (int64_t r = blockIdx.y; r < rows; r += gridDim.y) {
+    const int64_t off = r * cols;
+    const float* yr = y + off;
+    const uint32_t* br = bits + off;
+    int8_t* qr = q + off;
+    const float s = scales[r];
+    if (VEC) {
+      float4 yv[Q_VECS];
+      uint4 bv[Q_VECS];
+#pragma unroll
+      for (int k = 0; k < Q_VECS; ++k) {
+        const int c = tile + 4 * (k * Q_THREADS + t);
+        if (c < cols) {
+          yv[k] = *reinterpret_cast<const float4*>(yr + c);
+          bv[k] = *reinterpret_cast<const uint4*>(br + c);
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < Q_VECS; ++k) {
+        const int c = tile + 4 * (k * Q_THREADS + t);
+        if (c < cols)
+          *reinterpret_cast<uint32_t*>(qr + c) =
+              quant_code(yv[k].x, bv[k].x, s, qmax) |
+              quant_code(yv[k].y, bv[k].y, s, qmax) << 8 |
+              quant_code(yv[k].z, bv[k].z, s, qmax) << 16 |
+              quant_code(yv[k].w, bv[k].w, s, qmax) << 24;
+      }
+    } else {
+      float yv[Q_EPT];
+      uint32_t bv[Q_EPT];
+#pragma unroll
+      for (int k = 0; k < Q_EPT; ++k) {
+        const int c = tile + k * Q_THREADS + t;
+        yv[k] = c < cols ? yr[c] : 0.0f;
+        bv[k] = c < cols ? br[c] : 0u;
+      }
+#pragma unroll
+      for (int k = 0; k < Q_EPT; ++k) {
+        const int c = tile + k * Q_THREADS + t;
+        if (c < cols) qr[c] = (int8_t)quant_code(yv[k], bv[k], s, qmax);
+      }
+    }
   }
 }
 
@@ -157,25 +237,30 @@ dequant_mean_kernel(const int8_t* __restrict__ q,
   }
 }
 
-int64_t grid_for(int64_t n, int threads) {
-  int64_t blocks = (n + threads - 1) / threads;
-  if (blocks > 132 * 32) blocks = 132 * 32;
-  return blocks < 1 ? 1 : blocks;
-}
-
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = cudaSuccess).
 extern "C" int repro_quantize(const void* y, const void* bits,
                               const void* scales, void* q, int64_t rows,
                               int64_t cols, float qmax, void* stream) {
-  if (rows <= 0 || cols <= 0) return (int)cudaErrorInvalidValue;
-  const int threads = 256;
-  quantize_kernel<<<(unsigned)grid_for(rows * cols, threads), threads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(y), static_cast<const uint32_t*>(bits),
-      static_cast<const float*>(scales), static_cast<int8_t*>(q), rows, cols,
-      qmax);
+  if (rows <= 0 || cols <= 0 || cols > Q_MAX_COLS)
+    return (int)cudaErrorInvalidValue;
+  const int64_t tile = Q_THREADS * Q_EPT;
+  const dim3 grid((unsigned)((cols + tile - 1) / tile),
+                  (unsigned)(rows < 65535 ? rows : 65535));   // row stride
+  const float* yp = static_cast<const float*>(y);
+  const uint32_t* bp = static_cast<const uint32_t*>(bits);
+  const float* sp = static_cast<const float*>(scales);
+  int8_t* qp = static_cast<int8_t*>(q);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (cols % 4 == 0 && (reinterpret_cast<uintptr_t>(yp) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(bp) & 15) == 0 &&
+      (reinterpret_cast<uintptr_t>(qp) & 3) == 0)
+    quantize_kernel<true><<<grid, Q_THREADS, 0, s>>>(yp, bp, sp, qp, rows,
+                                                     (int)cols, qmax);
+  else
+    quantize_kernel<false><<<grid, Q_THREADS, 0, s>>>(yp, bp, sp, qp, rows,
+                                                      (int)cols, qmax);
   return (int)cudaGetLastError();
 }
 

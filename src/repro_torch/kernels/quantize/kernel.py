@@ -3,8 +3,10 @@
 ``quantize_kernel`` replaces the Pallas TPU kernel
 ``src/repro/kernels/quantize/kernel.py:65`` and covers a whole (N, M) block
 of client deltas, one scale per row, in one launch (the TPU path launched
-once per client). Bound: 9 bytes per element (float32 in, uint32 bits in,
-int8 out) over 3.35 TB/s.
+once per client): a 2-D grid of rows and column tiles of 1,024, 8
+elements a thread in 16-byte loads where the rows are 16-byte aligned,
+single elements where they are not. Bound: 9 bytes per element (float32 in,
+uint32 bits in, int8 out) over 3.35 TB/s.
 
 ``dequant_mean_kernel`` replaces ``src/repro/kernels/quantize/kernel.py:98``:
 each thread sums the N clients of 4 adjacent columns in order in float32,
@@ -13,7 +15,9 @@ intermediate and no atomics. Bound: 1 byte
 per code in plus 4 bytes per column out, over 3.35 TB/s.
 
 The TPU path's (32, 128) int8 tile check has no counterpart: the CUDA
-kernels index elements directly and take any M.
+kernels index elements directly and take any M (quantize's launcher
+refuses rows of more than 2^31 − 1,025 columns: its column offsets are
+32-bit).
 """
 from __future__ import annotations
 
@@ -28,43 +32,66 @@ def _qmax(bits: int) -> float:
     return float(2 ** (bits - 1) - 1)
 
 
-def _require(cond: bool, msg: str):
-    if not cond:
-        raise ValueError(msg)
-
-
 def check_quantize_inputs(y, rand_bits, scales):
-    _require(y.dim() == 2, f"quantize: y must be (N, M), got {tuple(y.shape)}")
-    _require(y.dtype == torch.float32, f"quantize: y must be float32, "
-                                       f"got {y.dtype}")
-    _require(rand_bits.dtype == torch.int32,
-             f"quantize: rand_bits must be int32, got {rand_bits.dtype}")
-    _require(rand_bits.shape == y.shape,
-             f"quantize: rand_bits shape {tuple(rand_bits.shape)} != y "
-             f"{tuple(y.shape)}")
-    _require(scales.dtype == torch.float32 and scales.shape == y.shape[:1],
-             f"quantize: scales must be float32 ({y.shape[0]},), got "
-             f"{scales.dtype} {tuple(scales.shape)}")
-    _require(y.numel() > 0, "quantize: empty input")
+    # each message is formatted only when its check fails: the wrapper
+    # runs once per leaf per round
+    if y.dim() != 2:
+        raise ValueError(f"quantize: y must be (N, M), got {tuple(y.shape)}")
+    if y.dtype != torch.float32:
+        raise ValueError(f"quantize: y must be float32, got {y.dtype}")
+    if rand_bits.dtype != torch.int32:
+        raise ValueError(f"quantize: rand_bits must be int32, got "
+                         f"{rand_bits.dtype}")
+    if rand_bits.shape != y.shape:
+        raise ValueError(f"quantize: rand_bits shape "
+                         f"{tuple(rand_bits.shape)} != y {tuple(y.shape)}")
+    if scales.dtype != torch.float32 or scales.shape != y.shape[:1]:
+        raise ValueError(f"quantize: scales must be float32 "
+                         f"({y.shape[0]},), got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if y.numel() == 0:
+        raise ValueError("quantize: empty input")
     for name, t in (("y", y), ("rand_bits", rand_bits), ("scales", scales)):
-        _require(t.device == y.device,
-                 f"quantize: {name} on {t.device}, y on {y.device}")
-        _require(t.is_contiguous(), f"quantize: {name} is not contiguous")
+        if t.device != y.device:
+            raise ValueError(f"quantize: {name} on {t.device}, y on "
+                             f"{y.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"quantize: {name} is not contiguous")
 
 
 def check_dequant_inputs(q, scales):
-    _require(q.dim() == 2, f"dequant_mean: q must be (N, M), got "
-                           f"{tuple(q.shape)}")
-    _require(q.dtype == torch.int8, f"dequant_mean: q must be int8, "
-                                    f"got {q.dtype}")
-    _require(scales.dtype == torch.float32 and scales.shape == q.shape[:1],
-             f"dequant_mean: scales must be float32 ({q.shape[0]},), got "
-             f"{scales.dtype} {tuple(scales.shape)}")
-    _require(q.numel() > 0, "dequant_mean: empty input")
+    if q.dim() != 2:
+        raise ValueError(f"dequant_mean: q must be (N, M), got "
+                         f"{tuple(q.shape)}")
+    if q.dtype != torch.int8:
+        raise ValueError(f"dequant_mean: q must be int8, got {q.dtype}")
+    if scales.dtype != torch.float32 or scales.shape != q.shape[:1]:
+        raise ValueError(f"dequant_mean: scales must be float32 "
+                         f"({q.shape[0]},), got {scales.dtype} "
+                         f"{tuple(scales.shape)}")
+    if q.numel() == 0:
+        raise ValueError("dequant_mean: empty input")
     for name, t in (("q", q), ("scales", scales)):
-        _require(t.device == q.device,
-                 f"dequant_mean: {name} on {t.device}, q on {q.device}")
-        _require(t.is_contiguous(), f"dequant_mean: {name} is not contiguous")
+        if t.device != q.device:
+            raise ValueError(f"dequant_mean: {name} on {t.device}, q on "
+                             f"{q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"dequant_mean: {name} is not contiguous")
+
+
+def _require_cuda(t, name: str):
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: takes CUDA tensors, got {t.device}")
+
+
+def _launch(t, fn, *args):
+    """Call the C launcher ``fn(*args, stream)`` on ``t``'s device and its
+    current stream; the device is switched only when ``t`` is not on the
+    current one."""
+    if t.device.index == torch.cuda.current_device():
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(t.device):
+        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def quantize_kernel(y, rand_bits, scales, *, bits: int = 8):
@@ -72,15 +99,12 @@ def quantize_kernel(y, rand_bits, scales, *, bits: int = 8):
     float32 (N,). Returns int8 codes (N, M). CUDA tensors only."""
     qmax = _qmax(bits)
     check_quantize_inputs(y, rand_bits, scales)
-    _require(y.device.type == "cuda",
-             f"quantize_kernel: takes CUDA tensors, got {y.device}")
-    q = torch.empty(y.shape, dtype=torch.int8, device=y.device)
-    lib = library()
-    with torch.cuda.device(y.device):
-        stream = torch.cuda.current_stream(y.device).cuda_stream
-        status = lib.repro_quantize(y.data_ptr(), rand_bits.data_ptr(),
-                                    scales.data_ptr(), q.data_ptr(),
-                                    y.shape[0], y.shape[1], qmax, stream)
+    _require_cuda(y, "quantize_kernel")
+    n, cols = y.shape
+    q = torch.empty((n, cols), dtype=torch.int8, device=y.device)
+    status = _launch(y, library().repro_quantize, y.data_ptr(),
+                     rand_bits.data_ptr(), scales.data_ptr(), q.data_ptr(),
+                     n, cols, qmax)
     quantize_kernel.launches += 1
     check(status, "quantize_kernel")
     return q
@@ -91,16 +115,12 @@ def dequant_mean_kernel(q, scales, *, bits: int = 8):
     CUDA tensors only."""
     qmax = _qmax(bits)
     check_dequant_inputs(q, scales)
-    _require(q.device.type == "cuda",
-             f"dequant_mean_kernel: takes CUDA tensors, got {q.device}")
+    _require_cuda(q, "dequant_mean_kernel")
     n, cols = q.shape
     out = torch.empty((cols,), dtype=torch.float32, device=q.device)
-    lib = library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.repro_dequant_mean(q.data_ptr(), scales.data_ptr(),
-                                        out.data_ptr(), n, cols, qmax,
-                                        1.0 / n, stream)
+    status = _launch(q, library().repro_dequant_mean, q.data_ptr(),
+                     scales.data_ptr(), out.data_ptr(), n, cols, qmax,
+                     1.0 / n)
     dequant_mean_kernel.launches += 1
     check(status, "dequant_mean_kernel")
     return out

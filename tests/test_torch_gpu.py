@@ -23,6 +23,7 @@ import math
 import numpy as np
 import pytest
 import torch
+from quant_cases import EDGE_CASES, edge_inputs
 
 from repro_torch import kernels as K
 from repro_torch.kernels.flash_attention import kernel as FA
@@ -158,23 +159,81 @@ def test_dequant_mean_matches_plain_at_any_shape(cuda, N, M):
                                atol=0, rtol=0)
 
 
-@pytest.mark.parametrize("bits", [8, 4])
-@pytest.mark.parametrize("shape", [(32, 784), (32, 1), (3, 70001)])
-def test_quantize_and_dequant_match_plain(cuda, shape, bits):
-    g = torch.Generator(device=cuda).manual_seed(1)
-    y = torch.randn(shape, generator=g, device=cuda) \
-        * torch.rand((shape[0], 1), generator=g, device=cuda)
-    rb = torch.randint(-2 ** 31, 2 ** 31, shape, dtype=torch.int32,
+def _quantize_checked(y, rb, s, bits):
+    """quantize_kernel's codes, bit-equal to the plain version's; one
+    launch per call."""
+    before = quantize_kernel.launches
+    q = quantize_kernel(y, rb, s, bits=bits)
+    torch.cuda.synchronize()
+    assert quantize_kernel.launches == before + 1
+    assert q.shape == y.shape and q.dtype == torch.int8
+    want = quantize_ref(y, rb, s[:, None], bits=bits)
+    assert torch.equal(q, want), f"{int((q != want).sum())} codes differ"
+    return q
+
+
+def _odd_view(t):
+    """A copy of t at an odd element offset of a flat buffer: contiguous,
+    but its rows are not 16-byte aligned (the scalar instantiation)."""
+    v = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:]
+    v.copy_(t.reshape(-1))
+    return v.view(t.shape)
+
+
+def _to_card(cuda, y, words, s):
+    return (torch.from_numpy(y).to(cuda),
+            torch.from_numpy(words.view(np.int32)).to(cuda),
+            torch.from_numpy(s).to(cuda))
+
+
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("M", [1, 3, 96, 784, 785, 70001, 75264, 1 << 20])
+@pytest.mark.parametrize("N", [1, 3, 32, 33])
+def test_quantize_and_dequant_match_plain(cuda, N, M, bits):
+    g = torch.Generator(device=cuda).manual_seed(N * 7 + M)
+    y = torch.randn((N, M), generator=g, device=cuda) \
+        * torch.rand((N, 1), generator=g, device=cuda)
+    rb = torch.randint(-2 ** 31, 2 ** 31, (N, M), dtype=torch.int32,
                        generator=g, device=cuda)
     rb[0, :1] = -1                      # 2^32 - 1: u rounds to 1.0
     s = TQ.compute_scale(y, dim=1)
-    q = quantize_kernel(y, rb, s, bits=bits)
-    assert torch.equal(q, quantize_ref(y, rb, s[:, None], bits=bits))
+    q = _quantize_checked(y, rb, s, bits)
     mean = dequant_mean_kernel(q, s, bits=bits)
     torch.testing.assert_close(mean, dequant_mean_ref(q, s, bits=bits),
                                atol=1e-6, rtol=1e-6)
     deq, mean2 = TQ.decode_mean_leaf(q, s, bits=bits)
-    assert torch.equal(mean2, mean) and deq.shape == shape
+    assert torch.equal(mean2, mean) and deq.shape == (N, M)
+
+
+@pytest.mark.parametrize("bits", [8, 2])
+@pytest.mark.parametrize("which", ["y", "bits", "both"])
+@pytest.mark.parametrize("N,M", [(3, 96), (32, 784), (33, 785),
+                                 (32, 1 << 20)])
+def test_quantize_odd_offset_views_match_plain(cuda, N, M, which, bits):
+    """y or the words at an odd offset take the scalar instantiation; its
+    codes equal the aligned call's and the plain version's."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    y = torch.randn((N, M), generator=g, device=cuda)
+    rb = torch.randint(-2 ** 31, 2 ** 31, (N, M), dtype=torch.int32,
+                       generator=g, device=cuda)
+    s = TQ.compute_scale(y, dim=1)
+    aligned = _quantize_checked(y, rb, s, bits)
+    yv = _odd_view(y) if which in ("y", "both") else y
+    rv = _odd_view(rb) if which in ("bits", "both") else rb
+    assert torch.equal(_quantize_checked(yv, rv, s, bits), aligned)
+
+
+@pytest.mark.parametrize("view", ["aligned", "odd"])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_quantize_edges_match_plain(cuda, case, bits, view):
+    """floor() on an exact integer with u = 0, the clip at y = +-s, -0.0,
+    words at or above 2^32 - 128 (u = 1.0) and the constant 1 << 31 word,
+    on the vector and the scalar instantiation."""
+    y, rb, s = _to_card(cuda, *edge_inputs(case, bits))
+    if view == "odd":
+        y, rb = _odd_view(y), _odd_view(rb)
+    _quantize_checked(y, rb, s, bits)
 
 
 def test_wrappers_raise_on_bad_cuda_inputs(cuda):

@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from jax_replay import bits_i32
+from quant_cases import EDGE_CASES, edge_inputs, random_inputs
 from repro.kernels.fused_update.ops import sgd_update as j_sgd_update
 from repro.kernels.quantize import ops as JQ
 from repro_torch import kernels as K
@@ -170,22 +171,11 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
                                  "flash_attention": 0, "ssd": 0}
 
 
-def _quant_inputs(N=4, M=1000, seed=0):
-    rng = np.random.RandomState(seed)
-    y = (rng.randn(N, M) * rng.rand(N, 1)).astype(np.float32)
-    bits = rng.randint(0, 2 ** 32, size=(N, M), dtype=np.uint64) \
-        .astype(np.uint32)
-    # the rounding edge: words at or above 2^32 - 128 read as u = 1.0
-    bits[0, :8] = 2 ** 32 - 1 - np.arange(8) * 40
-    s = np.maximum(np.abs(y).max(axis=1), 1e-12).astype(np.float32)
-    return y, bits, s
-
-
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
 @pytest.mark.parametrize("stochastic", [True, False])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_quantize_codes_equal_jax(bits, stochastic, impl):
-    y, rbits, s = _quant_inputs()
+    y, rbits, s = random_inputs(4, 1000)
     if not stochastic:
         rbits = np.full(y.shape, 1 << 31, np.uint32)   # u = 0.5
     qj = JQ.encode_leaf(jnp.asarray(y), jnp.asarray(rbits), jnp.asarray(s),
@@ -194,6 +184,39 @@ def test_quantize_codes_equal_jax(bits, stochastic, impl):
                         torch.from_numpy(s), bits=bits)
     assert qt.dtype == torch.int8
     np.testing.assert_array_equal(qt.numpy(), np.asarray(qj))
+
+
+def _codes_equal_jax(y, words, s, bits, impl):
+    """The port's plain version and its ``encode_leaf`` give JAX's
+    ``encode_leaf`` codes, bit for bit."""
+    qj = np.asarray(JQ.encode_leaf(jnp.asarray(y), jnp.asarray(words),
+                                   jnp.asarray(s), bits=bits, impl=impl))
+    yt, wt, st = torch.from_numpy(y.copy()), bits_i32(words), \
+        torch.from_numpy(s.copy())
+    plain = TQR.quantize_ref(yt, wt, st[:, None], bits=bits)
+    qt = TQ.encode_leaf(yt, wt, st, bits=bits)
+    assert qt.dtype == torch.int8 and qt.shape == y.shape
+    np.testing.assert_array_equal(plain.numpy(), qj)
+    np.testing.assert_array_equal(qt.numpy(), qj)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("N,M", [(1, 1), (3, 3), (3, 96), (2, 785),
+                                 (3, 4099)])
+def test_quantize_ragged_rows_equal_jax(N, M, bits, impl):
+    """Rows of 1, 3, 785 and 4,099 columns (no multiple of 4: the CUDA
+    kernel's scalar instantiation) and of 96 (its vector one)."""
+    _codes_equal_jax(*random_inputs(N, M, seed=7 * N + M), bits, impl)
+
+
+@pytest.mark.parametrize("impl", ["interpret", "xla"])
+@pytest.mark.parametrize("bits", [8, 4, 2])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_quantize_edges_equal_jax(case, bits, impl):
+    """floor() on an exact integer with u = 0, the clip at y = +-s, -0.0,
+    the words that round u to 1.0, and the constant 1 << 31 word."""
+    _codes_equal_jax(*edge_inputs(case, bits), bits, impl)
 
 
 def test_uniform_from_bits_rounds_top_words_to_one():
@@ -224,7 +247,7 @@ def test_quantize_single_leaf_and_scale_equal_jax(bits):
 def test_row_scales_equal_jax_reducer():
     """The compressed round's per-client scales: the JAX reducer's
     max(max|y| over the row, 1e-12), an all-zero row taking the floor."""
-    y, _, _ = _quant_inputs(N=5, M=300, seed=4)
+    y, _, _ = random_inputs(5, 300, seed=4)
     y[2] = 0.0
     sj = jnp.maximum(jnp.max(jnp.abs(jnp.asarray(y)), axis=1), 1e-12)
     st = TQ.compute_scale(torch.from_numpy(y), dim=1)
@@ -236,7 +259,7 @@ def test_row_scales_equal_jax_reducer():
 @pytest.mark.parametrize("impl", ["interpret", "xla"])
 @pytest.mark.parametrize("bits", [8, 4])
 def test_dequant_mean_matches_jax(bits, impl):
-    y, rbits, s = _quant_inputs(N=6, M=3000, seed=1)
+    y, rbits, s = random_inputs(6, 3000, seed=1)
     q = np.asarray(JQ.encode_leaf(jnp.asarray(y), jnp.asarray(rbits),
                                   jnp.asarray(s), bits=bits))
     mj = JQ.dequant_mean(jnp.asarray(q), jnp.asarray(s), bits=bits, impl=impl)
@@ -248,7 +271,7 @@ def test_dequant_mean_matches_jax(bits, impl):
 
 @pytest.mark.parametrize("bits", [8, 4])
 def test_decode_mean_leaf_deq_exactly_equal(bits):
-    y, rbits, s = _quant_inputs(N=5, M=2000, seed=2)
+    y, rbits, s = random_inputs(5, 2000, seed=2)
     q = np.asarray(JQ.encode_leaf(jnp.asarray(y), jnp.asarray(rbits),
                                   jnp.asarray(s), bits=bits))
     dj, mj = JQ.decode_mean_leaf(jnp.asarray(q), jnp.asarray(s), bits=bits)
