@@ -108,8 +108,52 @@ failure propagates, so the script exits non-zero and prints no result.
      complete, the SSD kernel must launch 64 times per multi-token
      prefill, and the tokens must match ``greedy_decode`` as in phase 7.
      Timed and profiled as phase 7.
- 11. One ``{"kernels": [...]}`` summary line (all five kernels), then the
-     last line ``{"ok": true, "device": {...}}``.
+ 11. The adaptive period (``algo="adaptive"``): first the card's run
+     against the CPU run on one small input and the same draws: logreg
+     dense (the same round lengths in every stage, each step's replica
+     divergence within 1e-5 relative, the history within 1e-5) and int8
+     (the same round lengths, the history within 1e-4); the int8 MLP on
+     three seeds, every block the card encoded bit-equal to the plain
+     version on the card's own inputs, with the first round whose codes
+     differ between the runs, how many differ and the history gap before
+     and after it logged. Then Table 4's configuration at its full scale
+     (logreg d=123, n=16,384, N=32, B=32, stl_sc's schedule with T1=512,
+     k1=2 as the cap, η1=0.5, threshold 3e-4, int8 over Star), cut to 3 of
+     its 6 stages. The objective must fall below 0.9x its start, every
+     round length must be within its stage's cap, and the launches must be
+     one fused update per local step and one quantize and one dequant_mean
+     per leaf per *triggered* round (counted from the rounds the backend
+     ran).
+ 12. The event runtime, synchronous: Table 5's configuration at its full
+     scale (logreg d=123, n=16,384, N=8, B=32, η1=0.5, stl_sc T1=256,
+     k1=2, int8, 25% stragglers at 4x, 1 ms a local step, dropout 0.1),
+     cut to 3 of its 6 stages, on ``runtime.EventBackend`` as
+     ``runtime.run`` wires it: in the run's first masked round every
+     dropped client's rows are, at the reduce, exactly as they were before
+     the round, and the present clients' rows moved; launches as in
+     phase 4; the modeled wall clock finite and larger than the same run's
+     without stragglers (``runtime.run``; the history must be the same).
+     Then Table 5's streaming axis at full size (the MLP, d=96, width 96,
+     depth 3, 8 leaves, n=4,096, N=8, sync, dense): the streaming
+     schedule's history and parameters bit-equal to the blocking
+     schedule's, its modeled wall shorter.
+ 13. The event runtime, asynchronous: Table 5's ``stl_sc+async`` with
+     ``staleness-int8`` messages in the same cohort, cut to 2 of 6 stages:
+     one fused update per client local step and one quantize and one
+     dequant_mean per leaf per merged upload, at rows = 1; merges a second
+     of host wall, the median staleness, and the device's busy share from
+     a short profile (taken after phase 4's profiles: a profiler session
+     that follows the serving phases' profiles loses device events at its
+     start). Then the three training kernels at the shapes phases 11-13
+     gave them, held to their plain versions and timed as in phase 3: the
+     one-row (1, M) blocks of the logreg leaf and the MLP's leaves, the
+     stacked (32, 123) and (8, 123) logreg blocks, and the trees (Table
+     4's and Table 5's stacked logreg trees, Table 5's stacked MLP tree,
+     one client's logreg and MLP trees). Each cut is logged on a line of
+     its own; phases 11-13 log their time.
+ 14. One ``{"kernels": [...]}`` summary line (all five kernels, launches
+     over every path driven), then the last line
+     ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -376,23 +420,32 @@ def launch_floor_ms(torch) -> float:
     return device_ms(torch, lambda: torch.cuda._sleep(0), cold=True)
 
 
-def slice_trees(torch) -> dict:
-    """The stacked (32, …) trees the slice's local steps update, as lists
-    of leaves on the card, random from a seed: {label: (ps, ms, gs)}."""
-    from repro_torch.models import logreg, mlp
+def random_trees(torch, seed: int, models: dict) -> dict:
+    """{label: (ps, ms, gs)}: random leaf lists on the card, from ``seed``,
+    shaped as ``models`` ({label: (params, N)}) says: each leaf of
+    ``params`` stacked N times, or as it is when N is None."""
     from repro_torch.utils.tree import tree_leaves
 
-    dev = torch.device("cuda:0")
-    g = torch.Generator(device=dev).manual_seed(4)
+    g = torch.Generator(device="cuda:0").manual_seed(seed)
     trees = {}
-    for label, p0 in (("logreg tree", logreg.init_params(784, device=dev)),
-                      ("mlp tree", mlp.init_params(784, width=96, depth=3,
-                                                   device=dev))):
-        rand = lambda: [torch.randn((N_CLIENTS,) + tuple(t.shape),
-                                    generator=g, device=dev)
+    for label, (p0, N) in models.items():
+        lead = () if N is None else (N,)
+        rand = lambda: [torch.randn(lead + tuple(t.shape), generator=g,
+                                    device="cuda:0")
                         for t in tree_leaves(p0)]
         trees[label] = (rand(), rand(), rand())
     return trees
+
+
+def slice_trees(torch) -> dict:
+    """The stacked (32, …) trees the slice's local steps update."""
+    from repro_torch.models import logreg, mlp
+
+    dev = torch.device("cuda:0")
+    return random_trees(torch, 4, {
+        "logreg tree": (logreg.init_params(784, device=dev), N_CLIENTS),
+        "mlp tree": (mlp.init_params(784, width=96, depth=3, device=dev),
+                     N_CLIENTS)})
 
 
 def tree_update_ms(torch, ps, ms, gs) -> float:
@@ -405,19 +458,21 @@ def tree_update_ms(torch, ps, ms, gs) -> float:
                                                      beta=0.9), cold=True)
 
 
-def check_trees(torch, floor_ms: float) -> dict:
+def check_trees(torch, floor_ms: float, trees=None) -> dict:
     """Phase 3, the trees: one launch updates a whole stacked (32, …) tree
     the slice's local steps update (logreg's one leaf, the MLP's 8),
     bit-equal to the plain version in float32; its device time beside its
     bound, the per-leaf launches it replaces, ``torch._fused_sgd_`` over
     the same leaf lists (held to the plain version first) and the launch
-    floor."""
+    floor. ``trees`` ({label: (ps, ms, gs)}, default ``slice_trees``):
+    phases 11-13 pass theirs (``path_trees``)."""
     from repro_torch.kernels.fused_update.kernel import (
         fused_sgd_update, fused_sgd_update_leaves)
     from repro_torch.kernels.fused_update.ref import tree_sgd_update_ref
 
     rows = {}
-    for label, (ps, ms, gs) in slice_trees(torch).items():
+    trees = slice_trees(torch) if trees is None else trees
+    for label, (ps, ms, gs) in trees.items():
         n = sum(t.numel() for t in ps)
         want_p, want_m = tree_sgd_update_ref(ps, ms, gs, eta=0.05, beta=0.9,
                                              wd=1e-4)
@@ -490,6 +545,9 @@ class HostKey:
 
     def batch_indices(self, n_clients, batch, high):
         return self.key.batch_indices(n_clients, batch, high).to(self.device)
+
+    def client_batch_indices(self, batch, high):
+        return self.key.client_batch_indices(batch, high).to(self.device)
 
     def bits(self, shape):
         return self.key.bits(shape).to(self.device)
@@ -1208,6 +1266,560 @@ def time_serve_steps(torch, cfg, params, sched, long_prompt):
     return out
 
 
+# -- phases 11-13: the adaptive period and the event runtime ----------------
+
+# Phase 11: Table 4's configuration at its full scale
+# (benchmarks/table4_comm_cost.py:49-72): logreg d=123, n=16,384, N=32,
+# B=32, lambda 1e-3; "adaptive" (stl_sc's schedule, T1 = 2048 // 4, k1 = 2
+# as the cap, eta1 = 0.5, threshold 3e-4), int8 over Star, 6 stages.
+TABLE4 = {"n": 16384, "d": 123, "clients": 32, "T1": 512, "stages": 6,
+          "run_stages": 3}
+# Phases 12-13: Table 5's configuration at its full scale
+# (benchmarks/table5_straggler.py:96-118, 196): logreg d=123, n=16,384, N=8,
+# B=32, eta1 = 0.5, stl_sc with T1 = 1024 // 4 and k1 = 2 over 6 stages,
+# int8, 25% stragglers at 4x, 1 ms a local step; dropout 0.1 (the masked
+# round, and dropped async jobs).
+TABLE5 = {"n": 16384, "d": 123, "clients": 8, "T1": 256, "stages": 6,
+          "run_stages": 3, "async_stages": 2}
+# Table 5's streaming axis at its full scale (table5_straggler.py:121-142):
+# the MLP (d = 96, width 96, depth 3, 8 leaves) on n = 4,096, N = 8, sync
+# (k = 1), dense, datacenter link
+TABLE5_MLP = {"n": 4096, "d": 96, "width": 96, "depth": 3, "clients": 8}
+# one client's upload of one leaf: the (1, M) blocks of the async path
+# (the Table 4/5 logreg leaf, the Table 5 MLP's leaf sizes)
+# then the stacked blocks phases 11-12 hand quantize and dequant_mean: the
+# logreg leaf of Table 4's 32 clients and of Table 5's 8 (123 is not a
+# multiple of 4, so every row goes through quantize's scalar instantiation)
+PATH_SHAPES = {"logreg theta 1-row": (1, 123),
+               "mlp w 1-row": (1, 96 * 96),
+               "mlp b 1-row": (1, 96),
+               "mlp out.b 1-row": (1, 1),
+               "table4 logreg theta": (TABLE4["clients"], 123),
+               "table5 logreg theta": (TABLE5["clients"], 123)}
+
+
+def log_cut(phase: str, what: str, run: int, of: int):
+    log(f"[cut] {phase}: {what}, {run} of {of} stages")
+
+
+def expect_launches(label: str, counts: dict, want: dict):
+    """Fail unless every training kernel launched as the path says."""
+    if any(counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"{label}: launches {counts}, expected {want}")
+
+
+def probed(base):
+    """``base`` (a backend class) recording each adaptive step's replica
+    divergence (left on the device; the loop reads it anyway) and each
+    stage's (k-cap, round lengths)."""
+
+    class Probed(base):
+        def setup(self, engine):
+            super().setup(engine)
+            self.divs, self.round_steps = [], []
+
+        def _adaptive_fns(self, engine, b):
+            step_fn, sync_fn = super()._adaptive_fns(engine, b)
+
+            def step(*a):
+                t, div = step_fn(*a)
+                self.divs.append(div)
+                return t, div
+            return step, sync_fn
+
+        def run_stage(self, stage, engine):
+            status = super().run_stage(stage, engine)
+            self.round_steps.append((stage.k, list(self._last_round_steps)))
+            return status
+
+    return Probed
+
+
+def logreg_problem(torch, dev, n, d, clients, lam=1e-3):
+    """Table 4/5's logreg problem on ``dev``: (loss, eval, p0, data)."""
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.models import logreg
+
+    x, y = make_binary_classification(n=n, d=d, seed=0)
+    data = {k: torch.from_numpy(v).to(dev)
+            for k, v in partition_iid(x, y, clients, seed=1).items()}
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    return (lambda p, b: logreg.loss_fn(p, b, lam),
+            lambda p: logreg.full_objective(p, xt, yt, lam),
+            logreg.init_params(d, device=dev), data)
+
+
+def check_objective(label: str, vals):
+    if not all(math.isfinite(v) for v in vals):
+        raise AssertionError(f"{label}: non-finite objective")
+    if not vals[-1] < 0.9 * vals[0]:
+        raise AssertionError(f"{label}: objective {vals[-1]} did not fall "
+                             f"below 0.9 x {vals[0]}")
+
+
+def recording_int8(calls: list):
+    """An int8 ``QuantizedMean`` that appends each leaf block it encodes
+    to ``calls``, as (y, bits, scales, codes) on the block's device."""
+    from repro_torch.comm.reducer import QuantizedMean
+    from repro_torch.kernels.quantize import ops as Q
+
+    class Recording(QuantizedMean):
+        def _compress(self, y, rng):
+            scales = Q.compute_scale(y, dim=1)
+            rbits = rng.bits(y.shape)
+            q = Q.encode_leaf(y, rbits, scales, bits=self.bits)
+            calls.append((y.clone(), rbits, scales.clone(), q))
+            return Q.decode_mean_leaf(q, scales, bits=self.bits)
+
+    return Recording(bits=8)
+
+
+def adaptive_pair(torch, model: str, reducer, seed: int = 0):
+    """The adaptive period on the CPU and on the card, on one small input
+    and the same draws (key ``seed``): {device: (per-step divergences,
+    per-stage (cap, round lengths), history values, encoded blocks)}."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import simulate
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.engine import Engine
+    from repro_torch.models import mlp
+    from repro_torch.utils.rng import TorchKey
+
+    if model == "logreg":
+        cfg = TrainConfig(algo="adaptive", eta1=0.5, T1=32, k1=4.0,
+                          n_stages=3, batch_per_client=8, seed=0)
+    else:   # the GPU tests' runtime MLP
+        cfg = TrainConfig(algo="adaptive", eta1=0.5, T1=16, k1=4.0,
+                          n_stages=2, batch_per_client=8, seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        tdev = torch.device(dev)
+        if model == "logreg":
+            loss, ev, p0, data = logreg_problem(torch, tdev, 512, 32, 4,
+                                                lam=1e-2)
+        else:
+            x, y = make_binary_classification(n=256, d=32, seed=0)
+            data = {k: torch.from_numpy(v).to(tdev)
+                    for k, v in partition_iid(x, y, 4, seed=1).items()}
+            xt, yt = torch.from_numpy(x).to(tdev), torch.from_numpy(y).to(tdev)
+            p0 = mlp.init_params(32, width=16, depth=3, device=tdev)
+            loss = lambda p, b: mlp.loss_fn(p, b, 1e-3)
+            ev = lambda p, xt=xt, yt=yt: mlp.full_objective(p, xt, yt, 1e-3)
+        calls = []
+        red = recording_int8(calls) if reducer == "int8" else reducer
+        backend = probed(simulate.VmapSimulatorBackend)(
+            loss, p0, data, ev, device=dev,
+            rng=HostKey(TorchKey(seed), tdev))
+        hist = Engine(cfg.algo, cfg, reducer=red).run(backend)
+        out[dev] = ([float(d) for d in backend.divs], backend.round_steps,
+                    [r.value for r in hist], calls)
+    return out
+
+
+def adaptive_reference_check(torch):
+    """Phase 11a: the adaptive period on the card against the CPU run on
+    one small input and the same draws. Logreg dense: the same round
+    lengths in every stage, each step's replica divergence within 1e-5
+    relative, the history within 1e-5. Logreg int8: the same round
+    lengths, the history within 1e-4. Then the int8 MLP on three seeds,
+    whose history may part from the CPU's by more: every block the card
+    encoded is bit-equal to the plain version on the card's own inputs
+    (so the kernel is not at fault), and the log records, per seed, the
+    first round whose codes differ between the two runs, how many codes
+    differ, how far apart the encoded inputs were there, and the history
+    gap before and after it."""
+    from repro_torch.kernels.quantize.ref import quantize_ref
+
+    for reducer, tol in (("dense", 1e-5), ("int8", 1e-4)):
+        out = adaptive_pair(torch, "logreg", reducer)
+        (dc, sc, hc, _), (dg, sg, hg, _) = out["cpu"], out["cuda"]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(dg, dc))
+        err = max(abs(a - b) for a, b in zip(hg, hc))
+        log(f"[adaptive] logreg {reducer} card vs CPU: {len(dc)} steps, "
+            f"{sum(len(s) for _, s in sc)} rounds, round lengths equal "
+            f"{sg == sc}, divergence max rel diff {rel:.3g}, history max "
+            f"|diff| {err:.3g} (tol {tol})")
+        if sg != sc or len(dg) != len(dc) or not err <= tol \
+                or (reducer == "dense" and not rel <= 1e-5):
+            raise AssertionError(f"adaptive {reducer}: card run disagrees "
+                                 f"with the CPU run (rounds equal: "
+                                 f"{sg == sc}, {rel}, {err})")
+    for seed in (0, 1, 2):
+        out = adaptive_pair(torch, "mlp", "int8", seed)
+        (_, sc, hc, qc), (_, sg, hg, qg) = out["cpu"], out["cuda"]
+        for y, rb, sc_, q in qg:
+            if not torch.equal(q, quantize_ref(y, rb, sc_[:, None], bits=8)):
+                raise AssertionError(f"mlp int8 seed {seed}: quantize on "
+                                     f"the card disagrees with the plain "
+                                     f"version on the card's inputs")
+        leaves = 8
+        flips = [int((a[3] != b[3].cpu()).sum()) for a, b in zip(qc, qg)]
+        first = next((i for i, f in enumerate(flips) if f), None)
+        gap = [abs(a - b) for a, b in zip(hg, hc)]
+        if first is None:
+            log(f"[adaptive] mlp int8 seed {seed}: no code differs over "
+                f"{len(qg)} blocks; history max |diff| {max(gap):.3g}")
+            continue
+        rnd = first // leaves + 1   # history record i is after round i
+        dy = float((qc[first][0] - qg[first][0].cpu()).abs().max())
+        log(f"[adaptive] mlp int8 seed {seed}: first differing codes in "
+            f"round {rnd} (leaf {first % leaves}): {flips[first]} of "
+            f"{qg[first][3].numel()} codes, encoded inputs max |diff| "
+            f"{dy:.3g}; {sum(flips)} codes differ over {min(len(qc), len(qg))}"
+            f" blocks; round lengths equal {sg == sc}; history max |diff| "
+            f"before it {max(gap[:rnd], default=0.0):.3g}, after "
+            f"{max(gap[rnd:], default=0.0):.3g}")
+
+
+def run_adaptive(torch, dev="cuda:0"):
+    """Phase 11: Table 4's adaptive run at full width, cut in stages."""
+    from repro_torch import kernels
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import simulate
+    from repro_torch.engine import Engine
+
+    dev = torch.device(dev)
+    t4 = TABLE4
+    log_cut("phase 11", "Table 4 adaptive (logreg d=123, N=32, int8)",
+            t4["run_stages"], t4["stages"])
+    loss, ev, p0, data = logreg_problem(torch, dev, t4["n"], t4["d"],
+                                        t4["clients"])
+    cfg = TrainConfig(algo="adaptive", eta1=0.5, T1=t4["T1"], k1=2.0,
+                      n_stages=t4["run_stages"], iid=True,
+                      batch_per_client=32, reducer="int8", seed=0)
+    engine = Engine(cfg.algo, cfg)
+    backend = probed(simulate.VmapSimulatorBackend)(loss, p0, data, ev,
+                                                    device=dev,
+                                                    eval_every=64)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    hist = engine.run(backend)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    rep = engine.report
+    vals = [r.value for r in hist]
+    check_objective("adaptive", vals)
+    rounds = sum(len(s) for _, s in backend.round_steps)
+    by_cap = 0
+    for (cap, steps), st in zip(backend.round_steps, engine.stages):
+        if any(n > cap for n in steps) or sum(steps) != st.T:
+            raise AssertionError(f"adaptive stage {st.s}: round lengths "
+                                 f"{steps} against cap {cap}, T {st.T}")
+        by_cap += sum(n == cap for n in steps[:-1])
+        log(f"[adaptive] stage {st.s}: k-cap {cap}, {len(steps)} rounds, "
+            f"{st.T / len(steps):.3f} steps a round")
+    if (rounds, len(backend.divs)) != (rep.rounds_total, rep.iters_total):
+        raise AssertionError(f"adaptive: {rounds} rounds recorded, "
+                             f"{rep.rounds_total} run")
+    # one fused update per local step; one quantize and one dequant_mean
+    # per leaf (one) per *triggered* round
+    expect_launches("adaptive", counts,
+                    {"fused_sgd_update": rep.iters_total,
+                     "quantize_kernel": rounds,
+                     "dequant_mean_kernel": rounds})
+    log(f"[adaptive] rounds {rounds} ({by_cap} ended at the cap, the rest "
+        f"by the threshold or the stage's end), iterations "
+        f"{rep.iters_total}, wall {wall:.2f} s ({wall * 1e3 / rep.iters_total:.3f}"
+        f" ms a step), objective {vals[0]:.6f} -> {vals[-1]:.6f}, comm bytes "
+        f"{rep.comm_bytes_total}, launches {counts}")
+    return {"counts": counts, "wall_s": wall, "rounds": rounds,
+            "iters": rep.iters_total, "objective": [vals[0], vals[-1]],
+            "round_steps": [s for _, s in backend.round_steps]}
+
+
+def masked_probe(base):
+    """``base`` (a backend class) that watches the first round of its run
+    in which a client drops: the parameters and moments before the round
+    and at the round's reduce (after its k local steps, before the
+    consensus overwrites them), in ``self.masked`` = (mask, before,
+    at_reduce)."""
+    from repro_torch.core import simulate
+    from repro_torch.utils.tree import tree_leaves
+
+    class Masked(base):
+        masked = None
+
+        def _round_fn(self, engine, k, b):
+            inner = super()._round_fn(engine, k, b)
+
+            def round_fn(carry, key_r, data, center, eta, mask=None):
+                if self.masked is not None or mask is None or mask.all():
+                    return inner(carry, key_r, data, center, eta, mask)
+                leaves = tree_leaves(carry[0]) + tree_leaves(carry[1])
+                before = [t.clone() for t in leaves]
+                sync = simulate._sync_
+
+                def seen(*a):
+                    self.masked = (mask, before, [t.clone() for t in leaves])
+                    return sync(*a)
+
+                simulate._sync_ = seen
+                try:
+                    return inner(carry, key_r, data, center, eta, mask)
+                finally:
+                    simulate._sync_ = sync
+
+            return round_fn
+
+    return Masked
+
+
+def check_masked(torch, backend):
+    """Phase 12a: in the masked round ``masked_probe`` watched, every
+    dropped client's rows are exactly as they were, and the present
+    clients' rows moved."""
+    if backend.masked is None:
+        raise AssertionError("masked round: no client dropped in the run")
+    mask, before, after = backend.masked
+    drop = torch.from_numpy(~mask).to(before[0].device)
+    for old, new in zip(before, after):
+        if not torch.equal(old[drop], new[drop]):
+            raise AssertionError("masked round: a dropped client's rows "
+                                 "moved")
+        if torch.equal(old[~drop], new[~drop]):
+            raise AssertionError("masked round: the present clients did "
+                                 "not move")
+    log(f"[runtime] masked round: clients "
+        f"{[i for i, m in enumerate(mask) if not m]} of {len(mask)} "
+        f"dropped; their rows unchanged at the reduce, the others moved")
+
+
+def run_runtime_sync(torch, dev="cuda:0"):
+    """Phase 12: Table 5's synchronous runtime at full width (stl_sc, int8,
+    stragglers, dropout through the masked round), then the MLP's
+    streaming axis against its blocking twin."""
+    from repro_torch import kernels, runtime
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.engine import Engine
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = torch.device(dev)
+    t5 = TABLE5
+    log_cut("phase 12", "Table 5 stl_sc sync (logreg d=123, N=8, int8, "
+            "25% stragglers at 4x, dropout 0.1)", t5["run_stages"],
+            t5["stages"])
+    loss, ev, p0, data = logreg_problem(torch, dev, t5["n"], t5["d"],
+                                        t5["clients"])
+    kw = dict(algo="stl_sc", eta1=0.5, T1=t5["T1"], k1=2.0,
+              n_stages=t5["run_stages"], iid=True, batch_per_client=32,
+              seed=0, reducer="int8", base_step_time_s=1e-3,
+              dropout_rate=0.1)
+    cfg = TrainConfig(straggler_frac=0.25, straggler_slowdown=4.0, **kw)
+    # the run as runtime.run wires it, its backend watching the first
+    # masked round
+    engine = Engine(cfg.algo, cfg)
+    backend = masked_probe(runtime.EventBackend)(loss, p0, data, ev,
+                                                 device=dev, eval_every=16)
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    history = engine.run(backend)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    rep = engine.report
+    check_masked(torch, backend)
+    vals = [r.value for r in history]
+    check_objective("runtime sync", vals)
+    expect_launches("runtime sync", counts,
+                    {"fused_sgd_update": rep.iters_total,
+                     "quantize_kernel": rep.rounds_total,
+                     "dequant_mean_kernel": rep.rounds_total})
+    dropped = sum(e[1] == "dropout" for e in backend.trace)
+    wall_clock = backend.clock.now
+    even = runtime.run(loss, p0, data, TrainConfig(**kw), ev, device=dev,
+                       eval_every=16)
+    if not (math.isfinite(wall_clock) and wall_clock > even.wall_clock_s):
+        raise AssertionError(f"runtime sync: wall clock {wall_clock} "
+                             f"with stragglers, {even.wall_clock_s} without")
+    if [(r.round, r.value) for r in even.history] != \
+            [(r.round, r.value) for r in history] or not dropped:
+        raise AssertionError("runtime sync: stragglers moved the history, "
+                             "or no client dropped")
+    log(f"[runtime] sync: rounds {rep.rounds_total}, iterations "
+        f"{rep.iters_total}, {dropped} client-rounds dropped, wall "
+        f"{wall:.2f} s, modeled wall {wall_clock:.4f} s (without stragglers "
+        f"{even.wall_clock_s:.4f} s, same history), objective "
+        f"{vals[0]:.6f} -> {vals[-1]:.6f}, launches {counts}")
+    launches = dict(counts)
+
+    tm = TABLE5_MLP
+    x, y = make_binary_classification(n=tm["n"], d=tm["d"], seed=0)
+    mdata = {k: torch.from_numpy(v).to(dev)
+             for k, v in partition_iid(x, y, tm["clients"], seed=1).items()}
+    xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    mp0 = mlp.init_params(tm["d"], width=tm["width"], depth=tm["depth"],
+                          seed=0, device=dev)
+    n_leaves = len(tree_leaves(mp0))
+    out = {}
+    for sched in ("blocking", "streaming"):
+        mcfg = TrainConfig(algo="sync", eta1=0.1, T1=32, n_stages=2,
+                           batch_per_client=32, seed=0, reducer="dense",
+                           upload_schedule=sched, comm_latency_s=1e-4,
+                           comm_bandwidth_gbps=0.45, base_step_time_s=1e-3,
+                           straggler_frac=0.25, straggler_slowdown=4.0)
+        kernels.reset_launch_counts()
+        out[sched] = runtime.run(
+            lambda p, b: mlp.loss_fn(p, b, 1e-3), mp0, mdata, mcfg,
+            lambda p: mlp.full_objective(p, xt, yt, 1e-3), device=dev,
+            eval_every=16)
+        torch.cuda.synchronize()
+        mcounts = kernels.launch_counts()
+        expect_launches(f"mlp {sched}", mcounts,
+                        {"fused_sgd_update": out[sched].iters,
+                         "quantize_kernel": 0, "dequant_mean_kernel": 0})
+        for k in TRAIN_KERNELS:
+            launches[k] += mcounts[k]
+    blk, stm = out["blocking"], out["streaming"]
+    same = ([(r.round, r.value) for r in blk.history]
+            == [(r.round, r.value) for r in stm.history]
+            and all(torch.equal(a, b) for a, b in
+                    zip(tree_leaves(blk.params), tree_leaves(stm.params))))
+    if not same or not stm.wall_clock_s < blk.wall_clock_s:
+        raise AssertionError(f"streaming mlp: bit-equal {same}, modeled "
+                             f"wall {stm.wall_clock_s} against blocking "
+                             f"{blk.wall_clock_s}")
+    check_objective("streaming mlp", [r.value for r in stm.history])
+    log(f"[runtime] mlp ({n_leaves} leaves, sync, dense): streaming history "
+        f"and params bit-equal to blocking; modeled wall {stm.wall_clock_s:.4f}"
+        f" s against {blk.wall_clock_s:.4f} s "
+        f"({blk.wall_clock_s / stm.wall_clock_s:.3f}x), {stm.rounds} rounds")
+    return {"launches": launches, "wall_s": wall,
+            "modeled_wall_s": wall_clock,
+            "modeled_wall_even_s": even.wall_clock_s,
+            "streaming_s": stm.wall_clock_s, "blocking_s": blk.wall_clock_s,
+            "objective": [vals[0], vals[-1]]}
+
+
+def async_cfg(**kw):
+    from repro_torch.configs.base import TrainConfig
+
+    t5 = TABLE5
+    return TrainConfig(algo="stl_sc+async", eta1=0.5, T1=t5["T1"], k1=2.0,
+                       n_stages=t5["async_stages"], iid=True,
+                       batch_per_client=32, seed=0, reducer="staleness-int8",
+                       base_step_time_s=1e-3, straggler_frac=0.25,
+                       straggler_slowdown=4.0, dropout_rate=0.1, **kw)
+
+
+def run_runtime_async(torch, dev="cuda:0"):
+    """Phase 13: Table 5's stl_sc+async with staleness-int8 messages, cut
+    in stages: merges a second of host wall and the median staleness (the
+    device's busy share comes from ``profile_runtime_async``)."""
+    from repro_torch import kernels, runtime
+    from repro_torch.obs.series import SeriesRegistry
+
+    dev = torch.device(dev)
+    t5 = TABLE5
+    log_cut("phase 13", "Table 5 stl_sc+async (logreg d=123, N=8, "
+            "staleness-int8, 25% stragglers at 4x, dropout 0.1)",
+            t5["async_stages"], t5["stages"])
+    loss, ev, p0, data = logreg_problem(torch, dev, t5["n"], t5["d"],
+                                        t5["clients"])
+    series = SeriesRegistry()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    res = runtime.run(loss, p0, data, async_cfg(), ev, device=dev,
+                      eval_every=16, series=series)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    vals = [r.value for r in res.history]
+    check_objective("runtime async", vals)
+    # one fused update per client local step (dropped jobs' included);
+    # one quantize and one dequant_mean per leaf (one) per merged upload
+    expect_launches("runtime async", counts,
+                    {"fused_sgd_update": res.iters,
+                     "quantize_kernel": res.rounds,
+                     "dequant_mean_kernel": res.rounds})
+    drops = sum(e[1] == "drop" for e in res.trace)
+    stale = series["runtime.merge_staleness"].values()
+    median = statistics.median(stale)
+    log(f"[runtime] async: {res.rounds} merges ({drops} jobs dropped), "
+        f"{res.iters} client local steps, wall {wall:.2f} s: "
+        f"{res.rounds / wall:.1f} merges a second of host wall; median "
+        f"staleness {median:.4f} (max {max(stale):.4f}); modeled wall "
+        f"{res.wall_clock_s:.4f} s, objective {vals[0]:.6f} -> "
+        f"{vals[-1]:.6f}, launches {counts}")
+
+    return {"launches": counts, "wall_s": wall, "merges": res.rounds,
+            "merges_per_s": res.rounds / wall, "median_staleness": median,
+            "modeled_wall_s": res.wall_clock_s,
+            "objective": [vals[0], vals[-1]]}
+
+
+def profile_runtime_async(torch, dev="cuda:0") -> dict:
+    """Phase 13's profile: torch.profiler over a short run of phase 13's
+    configuration (256 merges), after a warm-up run; the device's busy
+    share of the wall and the top device ops."""
+    from repro_torch import runtime
+
+    dev = torch.device(dev)
+    t5 = TABLE5
+    loss, ev, p0, data = logreg_problem(torch, dev, t5["n"], t5["d"],
+                                        t5["clients"])
+    runtime.run(loss, p0, data, async_cfg(), ev, device=dev, eval_every=16,
+                max_rounds=32)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        short = runtime.run(loss, p0, data, async_cfg(), ev, device=dev,
+                            eval_every=16, max_rounds=256)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kern)
+    out = {"merges": short.rounds, "local_steps": short.iters,
+           "wall_ms": wall * 1e3}
+    if not kern:
+        log("[profile] async: device time not measured (no CUDA events "
+            "traced)")
+        return out
+    out.update(busy_pct=100 * busy_us / (wall * 1e6),
+               kernels=sum(e.count for e in kern))
+    log(f"[profile] async: {short.rounds} merges, {short.iters} client "
+        f"local steps in {wall * 1e3:.1f} ms under the profiler, "
+        f"{out['kernels']} kernels, device busy {busy_us / 1e3:.2f} ms "
+        f"({out['busy_pct']:.1f}% of wall)")
+    for name in TRAIN_KERNELS:
+        hits = [e for e in kern if name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            us = sum(e.self_device_time_total for e in hits) / count
+            out.setdefault("in_run", {})[name] = {"launches": count,
+                                                  "us": us}
+            log(f"[profile]   in the run: {name} {us:.2f} us per launch "
+                f"(x{count})")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:6]:
+        log(f"[profile]   device {e.self_device_time_total / 1e3:8.3f} ms "
+            f"x{e.count:6d}  {e.key[:90]}")
+    return out
+
+
+def path_trees(torch) -> dict:
+    """The trees phases 11-13 update: the stacked Table 4 (32, 123) and
+    Table 5 (8, 123) logreg trees, Table 5's stacked (8, …) MLP tree, and
+    one client's unstacked trees (the async job's update)."""
+    from repro_torch.models import logreg, mlp
+
+    dev = torch.device("cuda:0")
+    lr = logreg.init_params(TABLE4["d"], device=dev)
+    tm = TABLE5_MLP
+    mp = mlp.init_params(tm["d"], width=tm["width"], depth=tm["depth"],
+                         device=dev)
+    return random_trees(torch, 6, {
+        "table4 logreg tree": (lr, TABLE4["clients"]),
+        "table5 logreg tree": (lr, TABLE5["clients"]),
+        "table5 mlp tree": (mp, tm["clients"]),
+        "logreg client tree": (lr, None),
+        "mlp client tree": (mp, None)})
+
+
 def main() -> int:
     import torch
 
@@ -1259,6 +1871,9 @@ def main() -> int:
                              f"two runs, not one per local step (7168)")
     profiles = {model: profile_slice(torch, model, x, y)
                 for model in ("logreg", "mlp")}
+    # phase 13's profile, taken here: a profiler session that follows the
+    # serving phases' profiles loses device events at its start
+    async_profile = profile_runtime_async(torch)
 
     # phases 5-7: flash attention, then the gemma2 serving path
     flash = check_flash(torch)
@@ -1274,8 +1889,26 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_m = serve_full_width(torch, "mamba2-2.7b")
     launches["ssd"] = serve_m["launches"]
+    torch.cuda.empty_cache()
 
-    # phase 11: summary
+    # phases 11-13: the adaptive period, then the event runtime
+    t0 = time.monotonic()
+    adaptive_reference_check(torch)
+    adaptive = run_adaptive(torch)
+    runtime_sync = run_runtime_sync(torch)
+    runtime_async = run_runtime_async(torch)
+    runtime_async["profile"] = async_profile
+    # the kernels at the shapes phases 11-13 gave them, against their
+    # plain versions: the blocks and the trees
+    path_rows = check_kernels(torch, PATH_SHAPES, floor)
+    path_tree_rows = check_trees(torch, floor, path_trees(torch))
+    for part in (adaptive["counts"], runtime_sync["launches"],
+                 runtime_async["launches"]):
+        for k in TRAIN_KERNELS:
+            launches[k] += part[k]
+    log(f"[time] phases 11-13: {time.monotonic() - t0:.1f} s")
+
+    # phase 14: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -1290,8 +1923,10 @@ def main() -> int:
         big = rows[(kname, "large")]
         out.append({"name": kname, "route": "cuda", "source": src,
                     "replaces": replaces, "launches": launches[kname],
-                    "max_abs_err": max(rows[(kname, s)]["max_abs_err"]
-                                       for s in shapes),
+                    "max_abs_err": max(
+                        [rows[(kname, s)]["max_abs_err"] for s in shapes]
+                        + [path_rows[(kname, s)]["max_abs_err"]
+                           for s in PATH_SHAPES]),
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
@@ -1301,8 +1936,17 @@ def main() -> int:
                               "ms": big["ms"], "plain_ms": big["plain_ms"],
                               "library_ms": big["library_ms"],
                               "bound_ms": big["bound_ms"]}})
+        # phases 11-13's blocks: the async path's (1, M) ones, the
+        # stacked logreg leaf of Tables 4 and 5
+        out[-1]["path_shapes"] = {
+            label: {k: path_rows[(kname, label)][k]
+                    for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                              "bound_by", "launch_floor_ms", "call_ms",
+                              "host_ms", "max_abs_err")}
+            for label in PATH_SHAPES}
         if kname == "fused_sgd_update":
             out[-1]["tree"] = trees   # each whole tree, one launch
+            out[-1]["path_trees"] = path_tree_rows
         if kname == "quantize_kernel":   # the scalar instantiation
             out[-1]["odd_view"] = {
                 label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
@@ -1327,7 +1971,9 @@ def main() -> int:
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
                 "library_ms": None, "shape": m["shape"], "shapes": ssd_rows})
     log(json.dumps({"kernels": out, "slice_profile": profiles,
-                    "serve": serve, "serve_mamba2": serve_m, "card": smi}))
+                    "serve": serve, "serve_mamba2": serve_m,
+                    "adaptive": adaptive, "runtime_sync": runtime_sync,
+                    "runtime_async": runtime_async, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

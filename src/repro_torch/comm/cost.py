@@ -12,9 +12,10 @@ Byte accounting (star / parameter-server topology, the paper's setting):
 Downlink is excluded by default; set ``count_downlink=True`` to include it.
 
 Defaults model a 1 Gbit/s WAN with 5 ms round latency — override per run
-via TrainConfig.comm_latency_s / comm_bandwidth_gbps. Calibrated per-hop
-link presets belong to the hierarchical topology, which waits for a later
-slice of the port.
+via TrainConfig.comm_latency_s / comm_bandwidth_gbps, or pick one of the
+JAX package's per-hop presets with ``link_model("ici" | "dcn" | "wan")``,
+whose values are copied unchanged so that the modeled clock of the event
+runtime equals the reference's.
 """
 from __future__ import annotations
 
@@ -45,6 +46,33 @@ class NetworkModel:
     def time(self, n_bytes: float) -> float:
         """α–β cost in modeled seconds of moving ``n_bytes`` bytes."""
         return self.latency_s + n_bytes / self.bandwidth_Bps
+
+
+# The JAX package's modeled link presets (``src/repro/launch/mesh.py``
+# ICI_BW / DCN_BW, in B/s), copied so that ``link_model`` prices a hop as
+# the reference does. They model that package's interconnect; nothing here
+# measures or describes the links of the card the port runs on.
+_REF_ICI_BW = 50e9
+_REF_DCN_BW = 6.25e9
+
+
+def link_model(name: str) -> NetworkModel:
+    """The reference's per-hop presets (α, β), values unchanged: its ICI
+    and DCN bandwidths (``_REF_ICI_BW`` / ``_REF_DCN_BW``) converted to
+    Gbit/s, and order-of-magnitude setup latencies (µs-scale ICI, tens of
+    µs DCN, ms-scale WAN barrier)."""
+    presets = {
+        "ici": NetworkModel(latency_s=1e-6,
+                            bandwidth_gbps=_REF_ICI_BW * 8 / 1e9),
+        "dcn": NetworkModel(latency_s=25e-6,
+                            bandwidth_gbps=_REF_DCN_BW * 8 / 1e9),
+        "wan": NetworkModel(latency_s=5e-3, bandwidth_gbps=1.0),
+    }
+    try:
+        return presets[name]
+    except KeyError:
+        raise ValueError(f"unknown link preset: {name!r} "
+                         f"(expected {sorted(presets)})") from None
 
 
 def leaf_elems(leaf) -> int:

@@ -23,6 +23,9 @@ Implementations
                   quantize / dequant_mean kernels on CUDA tensors and their
                   plain versions on CPU tensors.
   TopKMean      — magnitude top-k delta sparsification per (client, leaf).
+  StalenessWeightedMean — merge-on-arrival for asynchronous rounds
+                  (``runtime``): one client's message at a time, dense or
+                  int<b> (the quantize kernels on a one-row block per leaf).
 
 ``message_bytes(template)`` reports the compressed uplink payload one
 client sends per round — the quantity comm.cost prices.
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch.comm.cost import leaf_elems, leaf_itemsize
 from repro_torch.kernels.quantize import ops as Q
+from repro_torch.obs import metrics as obs_metrics
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
 
@@ -238,6 +242,97 @@ class TopKMean(_DeltaReducer):
         return [8 * self._k(leaf_elems(l)) for l in tree_leaves(template)]
 
 
+@dataclass(frozen=True, repr=False)
+class StalenessWeightedMean(_DeltaReducer):
+    """Merge-on-arrival reducer for asynchronous rounds (``runtime``).
+
+    Each client uploads an (optionally int<b>-quantized, through the same
+    kernels as ``QuantizedMean``) error-feedback-corrected round delta,
+    and the server applies messages *as they arrive*:
+
+        server' = server + w(τ)/N · deq(C(Δ_i + e_i))
+        w(τ)    = (1 + τ)^(-decay)
+
+    where the staleness τ counts server cycles beyond the natural pipeline
+    lag, τ = max(0, merges_since_pull − (N−1)) / N, as the runtime reports
+    it. The synchronous ``reduce`` over a stacked cohort (all clients at
+    τ = 0) is inherited, so the topology and cost plumbing prices it like
+    any other reducer; ``encode`` / ``merge`` are what the runtime drives.
+    """
+
+    decay: float = 0.5
+    compress: str = "dense"   # "dense" | "int" (bits-wide quantization)
+    bits: int = 8
+    error_feedback: bool = True
+
+    @property
+    def name(self):
+        tag = "" if self.compress == "dense" else f"-int{self.bits}"
+        return f"staleness{tag}"
+
+    def weight(self, staleness: float) -> float:
+        """Merge weight for a message that is ``staleness`` cycles late."""
+        return (1.0 + max(0.0, float(staleness))) ** (-self.decay)
+
+    def _compress(self, y, rng):
+        if self.compress == "dense":
+            return y, torch.mean(y, dim=0)
+        return QuantizedMean(bits=self.bits)._compress(y, rng)
+
+    # -- per-message async protocol (driven by runtime) ---------------------
+
+    def client_residual(self, template):
+        """Fresh per-client error-feedback residual (float32 zeros tree)."""
+        return tree_map(lambda l: torch.zeros(l.shape, dtype=torch.float32,
+                                              device=l.device), template)
+
+    def encode(self, delta, residual, rng):
+        """One client's upload: compress (Δ + e), each leaf as a one-row
+        (1, M) block (under int<b>: one quantize and one dequant_mean
+        launch per leaf on CUDA).
+
+        Returns (payload, residual'): the decompressed float32 delta tree
+        the server applies, and what the compressor dropped (zeros when
+        error feedback is off). Every returned tensor is new.
+        """
+        leaves, treedef = tree_flatten(delta)
+        res = treedef.flatten_up_to(residual)
+        payloads, new_res = [], []
+        for i, (d, e) in enumerate(zip(leaves, res)):
+            y = (d.to(torch.float32) + e).reshape(1, -1)
+            deq, _ = self._compress(y, rng.fold_in(i))
+            p = deq.reshape(d.shape)
+            payloads.append(p)
+            new_res.append((y.reshape(e.shape) - p) if self.error_feedback
+                           else torch.zeros_like(e))
+        m = obs_metrics.registry()
+        m.counter("comm.messages", unit="messages",
+                  help="async client uploads encoded").inc(
+                      reducer=self.name)
+        m.counter("comm.message_bytes", unit="B",
+                  help="compressed payload bytes of async uploads").inc(
+                      sum(self.leaf_message_bytes(delta)),
+                      reducer=self.name)
+        return treedef.unflatten(payloads), treedef.unflatten(new_res)
+
+    def merge(self, server, payload, staleness: float, n_clients: int):
+        """Apply one arrived message to the server model. Returns a new
+        tree: the server's tensors are never written in place, so a tree a
+        client pulled earlier keeps its values."""
+        w = self.weight(staleness) / float(n_clients)
+        obs_metrics.registry().histogram(
+            "comm.merge_weight", unit="weight",
+            help="staleness-decayed merge weights w(τ)/N applied").observe(
+                w, reducer=self.name)
+        return tree_map(lambda s, p: s + w * p.to(s.dtype), server, payload)
+
+    def leaf_message_bytes(self, template) -> list:
+        if self.compress == "dense":
+            return [leaf_elems(l) * 4 for l in tree_leaves(template)]
+        return [-(-leaf_elems(l) * self.bits // 8) + 4
+                for l in tree_leaves(template)]
+
+
 def supports_leaf_bytes(reducer: Reducer) -> bool:
     """True iff ``reducer`` overrides ``leaf_message_bytes`` — the per-leaf
     ledger branches on this probe instead of catching NotImplementedError,
@@ -264,13 +359,13 @@ def reduce_streaming(reducer: Reducer, stacked, state, rng):
     return treedef.unflatten(out), reducer.join_state(new, treedef)
 
 
-def get_reducer(spec, *, quant_bits: int = 8,
-                topk_frac: float = 0.1) -> Reducer:
+def get_reducer(spec, *, quant_bits: int = 8, topk_frac: float = 0.1,
+                staleness_decay: float = 0.5) -> Reducer:
     """Resolve a reducer from a config string (or pass a Reducer through).
 
     Accepted specs: "dense" | "int8" / "quant" (quant_bits-wide) |
-    "int<b>" (explicit width) | "topk" (topk_frac). The staleness-weighted
-    reducers wait for the event-runtime slice of the port.
+    "int<b>" (explicit width) | "topk" (topk_frac) |
+    "staleness" / "staleness-int<b>" (async merge-on-arrival weights).
     """
     if isinstance(spec, Reducer):
         return spec
@@ -279,10 +374,11 @@ def get_reducer(spec, *, quant_bits: int = 8,
     if spec in ("quant", "int8", "quantized"):
         b = 8 if spec == "int8" else quant_bits
         return QuantizedMean(bits=b)
-    if spec.startswith("staleness"):
-        raise NotImplementedError(
-            f"reducer {spec!r}: the staleness-weighted reducer comes with "
-            f"the event-runtime slice of the port")
+    if spec == "staleness":
+        return StalenessWeightedMean(decay=staleness_decay)
+    if spec.startswith("staleness-int"):
+        return StalenessWeightedMean(decay=staleness_decay, compress="int",
+                                     bits=int(spec[len("staleness-int"):]))
     if spec.startswith("int"):
         return QuantizedMean(bits=int(spec[3:]))
     if spec == "topk":

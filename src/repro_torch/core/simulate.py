@@ -28,9 +28,13 @@ JAX package's schedule — per chunk, per round, per step, and
 ``fold_in(round, 0x5EED)`` then ``fold_in(·, leaf)`` for the reducer — so a
 test can hand in a key that replays JAX's draws.
 
-This slice runs the non-adaptive chunked path with every client present;
-the masked (dropout) round and the divergence-triggered ``adaptive``
-policy come with a later slice.
+A round may take a per-client mask (the event runtime's dropout): the
+dropped clients' rows of the parameters and moments are saved before the
+round's k steps and written back after them, so a dropped client is
+frozen for the round while its draws are still made. The
+divergence-triggered ``adaptive`` policy runs one local step at a time
+and fires the round when the replica divergence crosses its threshold,
+the stage's k-cap is hit or the stage ends.
 """
 from __future__ import annotations
 
@@ -45,7 +49,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core.prox import prox_loss
 from repro_torch.engine.engine import Engine, StageStatus
 from repro_torch.kernels.fused_update.ops import tree_sgd_update_
-from repro_torch.obs.trace import CAT_COMPUTE
+from repro_torch.obs.trace import CAT_COMM, CAT_COMPUTE
 from repro_torch.utils.rng import TorchKey
 from repro_torch.utils.tree import (tree_broadcast_leading, tree_flatten,
                                     tree_leaves, tree_map, tree_mean_leading,
@@ -105,26 +109,45 @@ def _gather_batch(data, idx):
     return tree_map(lambda a: a[rows, idx], data)
 
 
-def client_grads(loss_fn, params, batch, center, w):
-    """All N clients' gradients at once: (N, …) params and (N, B, …)
-    batches -> (N, …) gradients. ``loss_fn(params, batch, center, w)``."""
-    return torch.func.vmap(
-        torch.func.grad(lambda p, b: loss_fn(p, b, center, w)))(params,
-                                                                batch)
+def sgd_step_(loss_fn, momentum: float, params, mom, b, center, w,
+              eta_t: float, *, clients: bool = True):
+    """The single copy of the inner update math, in place: the minibatch
+    gradient of ``loss_fn(params, b, center, w)`` — every client's at once
+    (vmapped over the leading axis of ``params`` and ``b``) when
+    ``clients``, else one client's — then the fused SGD(+momentum) update
+    of ``params``/``mom``, one launch for the whole tree."""
+    grad = torch.func.grad(lambda p, bb: loss_fn(p, bb, center, w))
+    g = (torch.func.vmap(grad) if clients else grad)(params, b)
+    return tree_sgd_update_(params, mom, g, eta=eta_t, beta=momentum)
 
 
 def client_sgd_step(loss_fn, batch: int, momentum: float,
                     params, mom, data, key, center, w, eta_t: float):
     """One minibatch SGD(+momentum) step of all N clients, in place.
 
-    ``params``/``mom`` are stacked (N, …) trees and are updated in place
-    through the fused kernel (one launch per leaf); ``data`` leaves are
-    (N, n, …). The single copy of the inner update math.
+    ``params``/``mom`` are stacked (N, …) trees; ``data`` leaves are
+    (N, n, …), and each client draws its own indices from ``key``.
     """
     n_clients, n = tree_leaves(data)[0].shape[:2]
     idx = key.batch_indices(n_clients, batch, n)
-    g = client_grads(loss_fn, params, _gather_batch(data, idx), center, w)
-    return tree_sgd_update_(params, mom, g, eta=eta_t, beta=momentum)
+    return sgd_step_(loss_fn, momentum, params, mom,
+                     _gather_batch(data, idx), center, w, eta_t)
+
+
+def one_client_sgd_step(loss_fn, batch: int, momentum: float,
+                        params, mom, data, key, center, w, eta_t: float):
+    """One minibatch SGD(+momentum) step of ONE client, in place.
+
+    ``params``/``mom`` are one client's trees (no client axis) and
+    ``data`` its leaves (n, …); the indices come straight from ``key``
+    (no per-client split), as the JAX package's asynchronous job draws
+    them.
+    """
+    n = tree_leaves(data)[0].shape[0]
+    idx = key.client_batch_indices(batch, n)
+    return sgd_step_(loss_fn, momentum, params, mom,
+                     tree_map(lambda a: a[idx], data), center, w, eta_t,
+                     clients=False)
 
 
 def _eta_t(eta: float, lr_alpha: float, t: float) -> float:
@@ -158,32 +181,69 @@ def _copy_broadcast_(dst, src):
         d.copy_(s.unsqueeze(0).expand_as(d))
 
 
+def _freeze_rows(leaves, mask):
+    """Save the rows of the stacked (N, …) ``leaves`` that the (N,) bool
+    ``mask`` marks False; return a function that writes them back in
+    place (None when every row is present)."""
+    mask = np.asarray(mask, dtype=bool)
+    if mask.all():
+        return None
+    rows = torch.from_numpy(np.flatnonzero(~mask)).to(leaves[0].device)
+    saved = [x.index_select(0, rows) for x in leaves]
+
+    def restore():
+        for x, old in zip(leaves, saved):
+            x.index_copy_(0, rows, old)
+
+    return restore
+
+
+def _sync_(reducer, params, mom, comm, key):
+    """One reduce: the consensus copied back into every replica, the
+    moments dense-averaged. Returns (consensus, comm state)."""
+    consensus, comm = reducer.reduce(params, comm, key)
+    # the consensus rebroadcast is a real copy into every replica, which
+    # the next round's kernel launches update in place
+    _copy_broadcast_(params, consensus)
+    _copy_broadcast_(mom, tree_mean_leading(mom))
+    return consensus, comm
+
+
 def make_round_fn(loss_fn, *, k: int, batch: int, momentum: float,
                   lr_alpha: float, grow: float, b0: int, max_batch: int,
                   device, reducer=None):
     """One communication round = k local steps + 1 reduced average.
 
-    Returned fn: (carry, key_r, data, center, eta) -> carry where
-    carry = (params_stacked, momentum_stacked, t_global, comm_state) and
-    the stacked trees are updated in place. ``reducer`` (default
+    Returned fn: (carry, key_r, data, center, eta, mask=None) -> carry
+    where carry = (params_stacked, momentum_stacked, t_global, comm_state)
+    and the stacked trees are updated in place. ``reducer`` (default
     DenseMean) is a ``comm.Reducer`` or an ``engine.Topology``; its state
     rides in the carry. Momentum is always dense-averaged.
+
+    ``mask`` — an (N,) bool array or None (every client present): the
+    clients it marks False are frozen for the round's k local steps (they
+    missed their compute window), but every client still draws, and the
+    reduce still spans all N replicas, so a dropped client contributes a
+    zero delta (plus, under error-feedback reducers, the residual it
+    carried). The dropped rows are saved before the steps and written
+    back after them: the update kernel writes every row, and the rows it
+    wrote are then exactly the ones the JAX package's ``jnp.where`` keeps.
     """
     reducer = reducer if reducer is not None else get_reducer(None)
     step = make_local_step_fn(loss_fn, batch=batch, momentum=momentum,
                               lr_alpha=lr_alpha, grow=grow, b0=b0,
                               max_batch=max_batch, device=device)
 
-    def round_fn(carry, key_r, data, center, eta):
+    def round_fn(carry, key_r, data, center, eta, mask=None):
         params, mom, t, comm = carry
+        restore = (None if mask is None else
+                   _freeze_rows(tree_leaves(params) + tree_leaves(mom), mask))
         for key_t in key_r.split(k):
             t = step(params, mom, t, key_t, data, center, eta)
-        consensus, comm = reducer.reduce(params, comm,
-                                         key_r.fold_in(_COMM_SALT))
-        # the consensus rebroadcast is a real copy into every replica,
-        # which the next round's kernel launches update in place
-        _copy_broadcast_(params, consensus)
-        _copy_broadcast_(mom, tree_mean_leading(mom))
+        if restore is not None:
+            restore()
+        _, comm = _sync_(reducer, params, mom, comm,
+                         key_r.fold_in(_COMM_SALT))
         return params, mom, t, comm
 
     return round_fn
@@ -266,11 +326,10 @@ class VmapSimulatorBackend:
         if getattr(policy, "asynchronous", False):
             raise ValueError(
                 "asynchronous policies (barrier-free rounds) need the "
-                "event-driven backend, which the port does not have yet")
+                "event-driven backend: use runtime.EventBackend / "
+                "runtime.run instead of the vmapped simulator")
         if getattr(policy, "adaptive", False):
-            raise NotImplementedError(
-                "the divergence-triggered (adaptive) period comes with a "
-                "later slice of the port")
+            return self._run_stage_adaptive(stage, engine)
         k = stage.k
         round_fn = self._round_fn(engine, k, self.batch)
         # Non-prox algorithms have no center (None, an empty tree).
@@ -283,6 +342,9 @@ class VmapSimulatorBackend:
         while done_in_stage < n_rounds:
             n = min(self.chunk_rounds, n_rounds - done_in_stage)
             self.rng, sub = self.rng.split(2)
+            masks = self._sample_round_masks(n)
+            if masks is None:
+                masks = [None] * n
             # one wall span per chunk of n rounds (k local steps + reduce
             # each); the device is read once, at its end
             with engine.tracer.span("local_steps", cat=CAT_COMPUTE,
@@ -290,9 +352,9 @@ class VmapSimulatorBackend:
                                     attrs={"s": stage.s, "rounds": n,
                                            "k": k, "eta": stage.eta}):
                 vals = []
-                for key_r in sub.split(n):
+                for key_r, mask in zip(sub.split(n), masks):
                     carry = round_fn(carry, key_r, self.client_data,
-                                     center, stage.eta)
+                                     center, stage.eta, mask)
                     vals.append(self.eval_fn(tree_mean_leading(carry[0])))
                 vals = torch.stack(vals).tolist()
             hit = None
@@ -319,6 +381,92 @@ class VmapSimulatorBackend:
                 status.stop = True
                 break
         self.params, self.mom, self.t_global, self.comm_state = carry
+        # steps-per-round breakdown for event-clock overlays (EventBackend)
+        self._last_round_steps = [k] * status.rounds
+        engine.metrics.gauge(
+            "train.stage_objective", unit="objective",
+            help="eval_fn(averaged params) at stage end").set(
+                self.history[-1].value, stage=stage.s)
+        return status
+
+    def _sample_round_masks(self, n: int):
+        """Per-(round, client) participation masks for the next n rounds.
+
+        None (the default) means full participation;
+        ``runtime.EventBackend`` overrides this to draw dropout masks.
+        """
+        return None
+
+    # -- divergence-triggered periods (AdaptivePeriod) ----------------------
+
+    def _adaptive_fns(self, engine: Engine, b: int):
+        """(step_fn, sync_fn) of the adaptive stage: one local step of all
+        N clients in place, returning (t + 1, replica divergence); one
+        reduce in place, returning (consensus, comm state)."""
+        key = ("adaptive", b)
+        if key not in self._round_cache:
+            cfg = engine.cfg
+            step = make_local_step_fn(
+                self.wloss, batch=b, momentum=cfg.momentum,
+                lr_alpha=self.lr_alpha, grow=self.grow,
+                b0=cfg.batch_per_client, max_batch=cfg.max_batch,
+                device=self.device)
+            topo = engine.topology
+
+            def step_fn(params, mom, t, key_t, data, center, eta):
+                t = step(params, mom, t, key_t, data, center, eta)
+                return t, replica_divergence(params)
+
+            def sync_fn(params, mom, comm, key_r):
+                return _sync_(topo, params, mom, comm, key_r)
+
+            self._round_cache[key] = (step_fn, sync_fn)
+        return self._round_cache[key]
+
+    def _run_stage_adaptive(self, stage, engine: Engine) -> StageStatus:
+        """Probe-and-trigger loop: one local step of all N clients at a
+        time; the round runs when replica divergence crosses the policy
+        threshold, the stage's k-cap is hit, or the stage ends. Reading
+        the divergence is a host sync per step, as in the JAX package."""
+        policy = engine.algorithm.sync_policy
+        step_fn, sync_fn = self._adaptive_fns(engine, self.batch)
+        center = tree_mean_leading(self.params) if self.use_prox else None
+
+        status = StageStatus()
+        self._last_round_steps = []
+        params, mom, t = self.params, self.mom, self.t_global
+        since_sync = 0
+        for it in range(stage.T):
+            self.rng, sub = self.rng.split(2)
+            t, div = step_fn(params, mom, t, sub, self.client_data, center,
+                             stage.eta)
+            since_sync += 1
+            self.iters_done += 1
+            status.iters += 1
+            last = it == stage.T - 1
+            if not (last or since_sync >= stage.k
+                    or float(div) >= policy.threshold):
+                continue
+            with engine.tracer.span("reduce", cat=CAT_COMM,
+                                    track="simulator",
+                                    attrs={"s": stage.s,
+                                           "steps": since_sync}):
+                consensus, self.comm_state = sync_fn(
+                    params, mom, self.comm_state, sub.fold_in(_COMM_SALT))
+            status.rounds += 1
+            self.rounds_done += 1
+            self._last_round_steps.append(since_sync)
+            since_sync = 0
+            v = float(self.eval_fn(consensus))
+            at_target = self.target is not None and v <= self.target
+            if self.rounds_done % self.eval_every == 0 or last or at_target:
+                self.history.append(Record(self.rounds_done, self.iters_done,
+                                           v))
+            if at_target or (self.max_rounds is not None
+                             and self.rounds_done >= self.max_rounds):
+                status.stop = True
+                break
+        self.t_global = t
         engine.metrics.gauge(
             "train.stage_objective", unit="objective",
             help="eval_fn(averaged params) at stage end").set(

@@ -1,4 +1,4 @@
-"""Client data partitioners (numpy).
+"""Client data partitioners (numpy), and the gradient-diversity probe.
 
 ``partition_paper`` reproduces the paper's §5 Non-IID construction: take s%
 of the data i.i.d. and split it equally across clients; sort the remaining
@@ -9,6 +9,9 @@ package's ``data/partition.py``.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from repro_torch.utils.tree import tree_leaves
 
 
 def partition_iid(x, y, n_clients: int, seed: int = 0):
@@ -38,3 +41,16 @@ def partition_paper(x, y, n_clients: int, iid_percent: float, seed: int = 0):
     rest_shares = rest.reshape(n_clients, -1)
     idx = np.concatenate([iid_shares, rest_shares], axis=1)
     return {"x": x[idx], "y": y[idx]}
+
+
+def gradient_diversity(client_data, grad_fn, params):
+    """ζ measurement helper: (1/N) Σ ||∇f_i(x) − ∇f(x)||² at given params.
+
+    ``client_data``: tree of tensors with the client axis N leading every
+    leaf; ``grad_fn(params, d)`` returns one client's gradient tree, and
+    ``torch.func.vmap`` takes all N at once. Returns a 0-d tensor.
+    """
+    grads = torch.func.vmap(lambda d: grad_fn(params, d))(client_data)
+    sq = sum(torch.sum(torch.square(g - torch.mean(g, 0)[None]))
+             for g in tree_leaves(grads))
+    return sq / tree_leaves(grads)[0].shape[0]

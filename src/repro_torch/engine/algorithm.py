@@ -24,7 +24,7 @@ any front-end. Two registry extensions ship with the runtime subsystem:
 
   adaptive  divergence-triggered periods    AdaptivePeriod(StagewiseGeo)
   <name>+async  any registered name wrapped in AsyncPeriod (barrier-free
-                merge-on-arrival rounds; executed by the event runtime, not ported yet)
+                merge-on-arrival rounds; executed by runtime.EventBackend)
 """
 from __future__ import annotations
 
@@ -123,7 +123,7 @@ def make_async(algorithm) -> Algorithm:
 
     The schedule, local update and prox flag are preserved; only the round
     semantics change from barriered average to merge-on-arrival. Executable
-    by the event runtime only (not ported yet).
+    by ``runtime.EventBackend`` only.
     """
     algo = get_algorithm(algorithm)
     if algo.sync_policy.asynchronous:

@@ -56,7 +56,7 @@ class SyncPolicy:
 
     Two class-level capability flags route execution:
       ``asynchronous`` — rounds merge on arrival instead of barriering
-        (honoured by the event runtime, not ported yet);
+        (honoured by ``runtime.EventBackend``);
       ``adaptive`` — the k in each Stage is only a *cap*; the backend
         triggers a round when replica divergence crosses ``threshold``.
     """
@@ -130,7 +130,7 @@ class AsyncPeriod(SyncPolicy):
     The (η_s, T_s, k_s) schedule is delegated to ``base`` — any existing
     policy composes (``engine.make_async`` wraps a registered Algorithm), so
     e.g. STL-SGD's growing k_s runs with asynchronous merging unchanged.
-    Only the event runtime (not ported yet) can execute the asynchronous
+    Only ``runtime.EventBackend`` can execute the asynchronous
     semantics; the barrier backends reject it.
     """
 

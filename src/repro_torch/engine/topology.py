@@ -197,7 +197,7 @@ def get_topology(spec, *, reducer=None, network: NetworkModel | None = None,
                 "hier-streaming", "streaming-hierarchical"):
         raise NotImplementedError(
             f"topology {spec!r}: the hierarchical topology comes with a "
-            f"later slice of the port (Hierarchical with H100 link presets)")
+            f"later slice of the port (ROADMAP queue 1: Hierarchical)")
     red = get_reducer(reducer, quant_bits=quant_bits, topk_frac=topk_frac)
     if spec in (None, "star", "flat"):
         return Star(reducer=red, network=network or NetworkModel())

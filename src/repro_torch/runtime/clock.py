@@ -1,8 +1,7 @@
 """Virtual clock + deterministic event queue for the discrete-event runtime.
 
-The port's copy of ``src/repro/runtime/clock.py`` (without the training
-runtime's streaming-leaf helpers, which wait for the runtime slice); the
-serving engine schedules request arrivals on it.
+The port's copy of ``src/repro/runtime/clock.py``: the event runtime
+(``runtime.EventBackend``) and the serving engine schedule on it.
 
 The runtime's time is *modeled*, not measured: every client process and
 network transfer schedules events on one global ``EventQueue``; the
@@ -16,7 +15,7 @@ from __future__ import annotations
 
 import heapq
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, Optional, Tuple, Union
 
 
 @dataclass(order=True, frozen=True)
@@ -76,3 +75,8 @@ class Clock:
         """Move to (at least) time t; time never flows backwards."""
         self.now = max(self.now, float(t))
         return self.now
+
+
+# (time_s, kind, client[, leaf index]) — streaming "leaf_arrival" entries
+# carry the leaf index as a fourth element
+TraceEntry = Union[Tuple[float, str, int], Tuple[float, str, int, int]]

@@ -59,8 +59,9 @@ class DeviceModel:
 
     Roofline: ``max(step_flops / peak, hbm_bytes / bw)`` for one chip.
     Defaults are the H100 SXM's (NVIDIA data sheet). More than one chip
-    needs the α–β link model of ``comm/cost.py::link_model``, which waits
-    (ROADMAP queue 1), so ``n_chips > 1`` raises.
+    needs the α–β link pricing of ``comm/cost.py::link_model`` across
+    chips, which comes with the hierarchical slice (ROADMAP queue 1), so
+    ``n_chips > 1`` raises.
     """
 
     peak_flops: float = H100_PEAK_FLOPS_BF16
@@ -70,9 +71,9 @@ class DeviceModel:
     def __post_init__(self):
         if self.n_chips != 1:
             raise NotImplementedError(
-                "DeviceModel prices one chip; multi-chip serving waits for "
-                "comm/cost.py::link_model (ROADMAP queue 1: multi-chip "
-                "DeviceModel)")
+                "DeviceModel prices one chip; multi-chip serving, priced "
+                "with comm/cost.py::link_model, waits (ROADMAP queue 1: "
+                "multi-chip DeviceModel)")
 
     def step_time_s(self, cfg: ArchConfig, shape: ShapeConfig) -> float:
         fr = shape_flops(cfg, shape)

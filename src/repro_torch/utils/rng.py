@@ -10,15 +10,19 @@ on the order keys are drawn in — the per-leaf streaming reduce, which
 visits leaves in reverse, draws the same bits as the blocking one — and no
 draw waits for the device.
 
-A key supplies the simulator's two kinds of draw:
+A key supplies three kinds of draw:
 
   * ``batch_indices(n_clients, batch, high)`` — one local step's uniform
     minibatch indices, ``(N, B)`` int64, for all N clients at once (the
     JAX package splits the step key per client; a replaying key may);
+  * ``client_batch_indices(batch, high)`` — one client's step alone,
+    ``(B,)`` int64, drawn straight from the step key with no per-client
+    split (the event runtime's asynchronous job, as the JAX package's
+    draws it);
   * ``bits(shape)`` — uniform 32-bit words for stochastic rounding,
     returned as int32 and read as uint32 by the quantize kernel.
 
-Any object with these four methods can stand in (the parity tests pass
+Any object with these five methods can stand in (the parity tests pass
 one that replays JAX's threefry draws).
 """
 from __future__ import annotations
@@ -68,6 +72,12 @@ class TorchKey:
         """Uniform minibatch indices in [0, high), shape (N, B), int64."""
         return torch.randint(0, high, (n_clients, batch),
                              generator=self._generator(),
+                             device=self.device)
+
+    def client_batch_indices(self, batch: int, high: int) -> torch.Tensor:
+        """One client's uniform minibatch indices in [0, high), (B,),
+        int64."""
+        return torch.randint(0, high, (batch,), generator=self._generator(),
                              device=self.device)
 
     def bits(self, shape) -> torch.Tensor:

@@ -3,8 +3,9 @@
 ``JaxKey`` is a random key for the port that replays the JAX package's
 threefry draws: ``split`` / ``fold_in`` are ``jax.random``'s, a step's
 minibatch indices are one ``randint`` per client key (as
-``simulate._sample_batch`` draws them under vmap), and ``bits`` is
-``jax.random.bits`` carried as int32. With it the port and the JAX
+``simulate._sample_batch`` draws them under vmap), one client's alone a
+``randint`` on the step key itself (as the event runtime's asynchronous
+job draws them), and ``bits`` is ``jax.random.bits`` carried as int32. With it the port and the JAX
 package see the same minibatches and the same stochastic-rounding bits.
 """
 from __future__ import annotations
@@ -21,6 +22,11 @@ import torch
 def _batch_indices(key, n_clients, batch, high):
     keys = jax.random.split(key, n_clients)
     return jax.vmap(lambda k: jax.random.randint(k, (batch,), 0, high))(keys)
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2))
+def _client_batch_indices(key, batch, high):
+    return jax.random.randint(key, (batch,), 0, high)
 
 
 @functools.partial(jax.jit, static_argnums=(1,))
@@ -40,6 +46,10 @@ class JaxKey:
 
     def batch_indices(self, n_clients, batch, high):
         idx = _batch_indices(self.key, n_clients, batch, high)
+        return torch.from_numpy(np.asarray(idx).astype(np.int64))
+
+    def client_batch_indices(self, batch, high):
+        idx = _client_batch_indices(self.key, batch, high)
         return torch.from_numpy(np.asarray(idx).astype(np.int64))
 
     def bits(self, shape):

@@ -174,8 +174,14 @@ def test_get_reducer_and_topology_specs():
         get_topology("hier")
     with pytest.raises(NotImplementedError):
         topology_for(TrainConfig(topology="hier"))
-    with pytest.raises(NotImplementedError):
-        get_reducer("staleness")
+    # the staleness specs (async merge-on-arrival) resolve as the JAX
+    # package resolves them
+    for spec in ("staleness", "staleness-int8", "staleness-int4"):
+        ours = get_reducer(spec, staleness_decay=0.3)
+        ref = j_get_reducer(spec, staleness_decay=0.3)
+        assert (type(ours).__name__, ours.name, ours.decay, ours.compress,
+                ours.bits) == (type(ref).__name__, ref.name, ref.decay,
+                               ref.compress, ref.bits)
 
 
 # ---------------------------------------------------------------------------

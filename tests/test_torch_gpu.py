@@ -499,3 +499,214 @@ def test_simulator_runs_through_the_kernels(cuda):
     assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] == 8 * 8
     vals = np.array([r.value for r in hist])
     assert np.isfinite(vals).all() and vals[-1] < 0.9 * vals[0]
+
+
+# the event runtime's shapes: Table 5's MLP (d = 96, width 96, depth 3)
+# leaf sizes, each a one-row block in an async upload
+_TABLE5_MLP_LEAVES = [96, 9216, 96, 9216, 96, 9216, 1, 96]
+
+
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("view", ["aligned", "odd"])
+@pytest.mark.parametrize("M", sorted(set(_TABLE5_MLP_LEAVES)))
+def test_one_row_encode_and_decode_match_plain(cuda, M, view, bits):
+    """An async upload's leaf: ``encode_leaf`` / ``decode_mean_leaf`` on a
+    (1, M) block through the same wrappers as the barrier round, one
+    launch each; codes bit-equal to the plain version, the dequantized
+    message and the mean within 1e-6."""
+    g = torch.Generator(device=cuda).manual_seed(M)
+    y = torch.randn((1, M), generator=g, device=cuda) * 0.01
+    if view == "odd":   # not 16-byte aligned: the scalar instantiation
+        y = torch.empty(M + 1, device=cuda)[1:].view(1, M).copy_(y)
+    rb = torch.randint(-2 ** 31, 2 ** 31, (1, M), dtype=torch.int32,
+                       generator=g, device=cuda)
+    s = TQ.compute_scale(y, dim=1)
+    q0, d0 = quantize_kernel.launches, dequant_mean_kernel.launches
+    q = TQ.encode_leaf(y, rb, s, bits=bits)
+    deq, mean = TQ.decode_mean_leaf(q, s, bits=bits)
+    torch.cuda.synchronize()
+    assert (quantize_kernel.launches, dequant_mean_kernel.launches) == \
+        (q0 + 1, d0 + 1)
+    qr = quantize_ref(y.cpu(), rb.cpu(), s.cpu()[:, None], bits=bits)
+    assert torch.equal(q.cpu(), qr)
+    deq_r, mean_r = TQ.decode_mean_leaf(qr, s.cpu(), bits=bits)
+    torch.testing.assert_close(deq.cpu(), deq_r, atol=1e-6, rtol=0)
+    torch.testing.assert_close(mean.cpu(), mean_r, atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("mask", [[True, False, True, False],
+                                  [False, False, False, False],
+                                  [True, True, False, True]])
+def test_masked_step_restore_equals_where(cuda, mask):
+    """The masked round's freeze: the dropped clients' rows saved before a
+    fused step and written back after it equal ``torch.where`` of the
+    stepped and the old rows, bit for bit."""
+    from repro_torch.core.simulate import _freeze_rows
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    p0 = mlp.init_params(96, width=96, depth=3, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    rand = lambda t: torch.randn((4,) + tuple(t.shape), generator=g,
+                                 device=cuda)
+    params, moms, grads = (tree_map(rand, p0) for _ in range(3))
+    old = [t.clone() for t in tree_leaves(params) + tree_leaves(moms)]
+    free_p, free_m = (tree_map(torch.clone, t) for t in (params, moms))
+    tree_sgd_update_(free_p, free_m, grads, eta=0.5, beta=0.9)
+    before = fused_sgd_update.launches
+    restore = _freeze_rows(tree_leaves(params) + tree_leaves(moms), mask)
+    tree_sgd_update_(params, moms, grads, eta=0.5, beta=0.9)
+    restore()
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 1
+    keep = torch.tensor(mask, device=cuda)
+    for got, stepped, was in zip(tree_leaves(params) + tree_leaves(moms),
+                                 tree_leaves(free_p) + tree_leaves(free_m),
+                                 old):
+        want = torch.where(keep.view((4,) + (1,) * (was.dim() - 1)),
+                           stepped, was)
+        assert torch.equal(got, want)
+
+
+def test_one_client_tree_update_is_one_launch(cuda):
+    """The async job's step: one client's unstacked MLP tree (8 leaves, the
+    bias of the head a single float) in one launch, bit-equal to the
+    plain version."""
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    p0 = mlp.init_params(96, width=96, depth=3, seed=0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(9)
+    rand = lambda t: torch.randn(t.shape, generator=g, device=cuda)
+    params, moms, grads = (tree_map(rand, p0) for _ in range(3))
+    assert [t.numel() for t in tree_leaves(params)] == _TABLE5_MLP_LEAVES
+    want_p, want_m = tree_sgd_update_ref(
+        tree_leaves(params), tree_leaves(moms), tree_leaves(grads), eta=0.5,
+        beta=0.9)
+    before = fused_sgd_update.launches
+    tree_sgd_update_(params, moms, grads, eta=0.5, beta=0.9)
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 1
+    for got, want in zip(tree_leaves(params) + tree_leaves(moms),
+                         want_p + want_m):
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kw,tol", [
+    (dict(dropout_rate=0.25), 1e-4),
+    (dict(async_mode=True, dropout_rate=0.25), 1e-4),
+    (dict(algo="adaptive", reducer="dense"), 1e-5)])
+def test_runtime_runs_through_the_kernels(cuda, kw, tol):
+    """The event runtime on the card: one fused update per local step (one
+    client's under async_mode), one quantize and one dequant_mean per leaf
+    per int8 round or staleness-int8 upload; the same event trace as the
+    CPU run on the same draws, and the history within the CPU parity
+    tests' tolerance of it (1e-4 int8, 1e-5 dense). The adaptive case runs
+    dense: an int8 adaptive MLP run fires a round almost every step, and
+    its history came 2.1e-4 from the CPU's after 40 rounds, past the int8
+    tolerance stated for fixed-period runs. The int8 adaptive path is held
+    on logreg (``test_adaptive_int8_logreg_matches_cpu``); ``chip_smoke.py``
+    phase 11 logs, for the MLP, where its codes first differ from the
+    CPU's and checks every block against the plain version."""
+    from repro_torch import runtime
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.models import mlp
+    from repro_torch.utils.rng import TorchKey
+
+    x, y = make_binary_classification(n=256, d=32, seed=0)
+    data = {k: torch.from_numpy(v)
+            for k, v in partition_iid(x, y, 4, seed=1).items()}
+    cfg = TrainConfig(**dict(dict(algo="stl_sc", eta1=0.5, T1=16, k1=4.0,
+                                  n_stages=2, batch_per_client=8,
+                                  reducer="int8", straggler_frac=0.25,
+                                  straggler_slowdown=2.0), **kw))
+    p0 = mlp.init_params(32, width=16, depth=3)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xt, yt = (torch.from_numpy(a).to(dev) for a in (x, y))
+        K.reset_launch_counts()
+        out[dev] = runtime.run(lambda p, b: mlp.loss_fn(p, b, 1e-3), p0,
+                               data, cfg,
+                               lambda p: mlp.full_objective(p, xt, yt, 1e-3),
+                               device=dev, rng=_HostKey(TorchKey(0), dev))
+    counts = K.launch_counts()
+    res = out["cuda"]
+    assert res.trace == out["cpu"].trace
+    np.testing.assert_allclose([r.value for r in res.history],
+                               [r.value for r in out["cpu"].history],
+                               atol=tol, rtol=0)
+    # one encode per merge, or one reduce per round
+    encodes = res.rounds if cfg.reducer == "int8" else 0
+    assert counts["fused_sgd_update"] == res.iters
+    assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
+        == 8 * encodes
+
+
+def test_adaptive_int8_logreg_matches_cpu(cuda):
+    """The int8 adaptive period on the card against the CPU run on the
+    same draws, on logreg (d = 32, N = 4): the same round lengths in every
+    stage, the history within the int8 tolerance (1e-4), one fused update
+    per local step and one quantize and one dequant_mean per round."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import simulate
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.engine import Engine
+    from repro_torch.models import logreg
+    from repro_torch.utils.rng import TorchKey
+
+    class Rounds(simulate.VmapSimulatorBackend):
+        def run_stage(self, stage, engine):
+            status = super().run_stage(stage, engine)
+            self.round_steps.append(list(self._last_round_steps))
+            return status
+
+    x, y = make_binary_classification(n=512, d=32, seed=0)
+    data = {k: torch.from_numpy(v)
+            for k, v in partition_iid(x, y, 4, seed=1).items()}
+    cfg = TrainConfig(algo="adaptive", eta1=0.5, T1=32, k1=4.0, n_stages=3,
+                      batch_per_client=8, reducer="int8", seed=0)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xt, yt = (torch.from_numpy(a).to(dev) for a in (x, y))
+        backend = Rounds(lambda p, b: logreg.loss_fn(p, b, 1e-2),
+                         logreg.init_params(32), data,
+                         lambda p: logreg.full_objective(p, xt, yt, 1e-2),
+                         device=dev, rng=_HostKey(TorchKey(0), dev))
+        backend.round_steps = []
+        engine = Engine(cfg.algo, cfg)
+        K.reset_launch_counts()
+        hist = engine.run(backend)
+        out[dev] = (backend.round_steps, [r.value for r in hist],
+                    engine.report, K.launch_counts())
+    (steps_c, hist_c, _, _), (steps_g, hist_g, rep, counts) = \
+        out["cpu"], out["cuda"]
+    assert steps_g == steps_c
+    assert any(n < 4 for steps in steps_g for n in steps[:-1])
+    np.testing.assert_allclose(hist_g, hist_c, atol=1e-4, rtol=0)
+    assert counts["fused_sgd_update"] == rep.iters_total
+    assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
+        == rep.rounds_total == sum(len(s) for s in steps_g)
+
+
+class _HostKey:
+    """Draws made on the CPU and handed to ``device``, so that a run on
+    the card and one on the CPU see the same draws."""
+
+    def __init__(self, key, device):
+        self.key, self.device = key, device
+
+    def split(self, n):
+        return [_HostKey(k, self.device) for k in self.key.split(n)]
+
+    def fold_in(self, data):
+        return _HostKey(self.key.fold_in(data), self.device)
+
+    def batch_indices(self, n_clients, batch, high):
+        return self.key.batch_indices(n_clients, batch, high).to(self.device)
+
+    def client_batch_indices(self, batch, high):
+        return self.key.client_batch_indices(batch, high).to(self.device)
+
+    def bits(self, shape):
+        return self.key.bits(shape).to(self.device)

@@ -3,7 +3,8 @@
 Three checks: no ``jax`` / ``repro`` import anywhere in the port's
 sources (or in ``chip_smoke.py``); a fresh interpreter that imports every
 port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
-port's entry point refuses to run without CUDA unless asked for the CPU.
+port's entry points (``core.simulate.run``, ``runtime.run``) refuse to
+run without CUDA unless asked for the CPU.
 """
 import ast
 import os
@@ -53,6 +54,7 @@ def test_no_jax_or_repro_import_in_port_sources():
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert "repro_torch.core.simulate" in mods
+    assert "repro_torch.runtime.runtime" in mods
     assert "repro_torch.kernels.quantize.kernel" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -80,6 +82,18 @@ def test_run_without_device_needs_cuda():
                      logreg.init_params(4), data, TrainConfig(T1=4, k1=2.0,
                                                               n_stages=1),
                      lambda p: torch.zeros(()))
+    from repro_torch import runtime
+
+    for cfg in (TrainConfig(T1=4, k1=2.0, n_stages=1),
+                TrainConfig(T1=4, k1=2.0, n_stages=1, async_mode=True)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            runtime.run(lambda p, b: logreg.loss_fn(p, b, 0.0),
+                        logreg.init_params(4), data, cfg,
+                        lambda p: torch.zeros(()))
+        res = runtime.run(lambda p, b: logreg.loss_fn(p, b, 0.0),
+                          logreg.init_params(4), data, cfg,
+                          lambda p: torch.zeros(()), device="cpu")
+        assert res.wall_clock_s > 0.0
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate.resolve_device("cuda")
     assert simulate.resolve_device("cpu").type == "cpu"

@@ -36,7 +36,7 @@ from repro_torch.data import make_binary_classification, partition_iid
 from repro_torch.data import partition_paper
 from repro_torch.engine import Engine
 from repro_torch.models import logreg, mlp
-from repro_torch.utils.convert import params_from_jax
+from repro_torch.utils.convert import params_from_jax, params_to_numpy
 
 _MODELS = {"logreg": (jlogreg, logreg), "mlp": (jmlp, mlp)}
 _LAM = 1e-3
@@ -47,8 +47,10 @@ def _problem(d, N, n=256):
     return x, y, partition_iid(x, y, N, seed=1)
 
 
-def _run_pair(model, cfg_kw, *, d=32, N=4, width=16, lr_alpha=0.0):
+def _run_pair(model, cfg_kw, *, d=32, N=4, width=16, lr_alpha=0.0,
+              backends=(JS.VmapSimulatorBackend, TS.VmapSimulatorBackend)):
     jm, tm = _MODELS[model]
+    jbackend, tbackend = backends
     x, y, data = _problem(d, N)
     if model == "logreg":
         jp0 = jlogreg.init_params(None, d)
@@ -56,7 +58,7 @@ def _run_pair(model, cfg_kw, *, d=32, N=4, width=16, lr_alpha=0.0):
         jp0 = jmlp.init_params(jax.random.key(42), d, width=width, depth=3)
     xj, yj = jnp.asarray(x), jnp.asarray(y)
     jeng = JEngine(cfg_kw["algo"], JCfg(**cfg_kw))
-    jhist = jeng.run(JS.VmapSimulatorBackend(
+    jhist = jeng.run(jbackend(
         lambda p, b: jm.loss_fn(p, b, _LAM), jp0,
         {k: jnp.asarray(v) for k, v in data.items()},
         jax.jit(lambda p: jm.full_objective(p, xj, yj, _LAM)),
@@ -64,7 +66,7 @@ def _run_pair(model, cfg_kw, *, d=32, N=4, width=16, lr_alpha=0.0):
 
     xt, yt = torch.from_numpy(x), torch.from_numpy(y)
     teng = Engine(cfg_kw["algo"], TrainConfig(**cfg_kw))
-    thist = teng.run(TS.VmapSimulatorBackend(
+    thist = teng.run(tbackend(
         lambda p, b: tm.loss_fn(p, b, _LAM),
         params_from_jax(to_numpy_tree(jp0)),
         {k: torch.from_numpy(v) for k, v in data.items()},
@@ -191,15 +193,96 @@ def test_torch_key_run_is_deterministic_and_converges():
 
 
 def test_adaptive_and_async_are_refused():
+    """The adaptive period runs on the simulator now; ``+async`` is still
+    refused there with ValueError, as the JAX package refuses it
+    (``tests/test_runtime.py::test_async_rejected_by_vmap_simulator``):
+    only the event runtime merges on arrival."""
     x, y, data = _problem(8, 2, n=64)
     tdata = {k: torch.from_numpy(v) for k, v in data.items()}
-    for algo, exc in (("adaptive", NotImplementedError),
-                      ("stl_sc+async", ValueError)):
-        with pytest.raises(exc):
-            TS.run(lambda p, b: logreg.loss_fn(p, b, _LAM),
-                   logreg.init_params(8), tdata,
-                   TrainConfig(**dict(_STL, algo=algo)),
-                   lambda p: torch.zeros(()), device="cpu")
+    run = lambda algo: TS.run(lambda p, b: logreg.loss_fn(p, b, _LAM),
+                              logreg.init_params(8), tdata,
+                              TrainConfig(**dict(_STL, algo=algo)),
+                              lambda p: torch.zeros(()), device="cpu")
+    hist = run("adaptive")
+    assert hist[-1].iteration == 16 + 32
+    with pytest.raises(ValueError, match="EventBackend"):
+        run("stl_sc+async")
+
+
+def _adaptive_backends():
+    """Each package's simulator backend, recording every local step's
+    replica divergence and each stage's round lengths."""
+
+    class J(JS.VmapSimulatorBackend):
+        divs, steps = [], []
+
+        def _adaptive_fns(self, engine, b):
+            step_fn, sync_fn = super()._adaptive_fns(engine, b)
+
+            def step(*a):
+                out = step_fn(*a)
+                J.divs.append(float(out[3]))
+                return out
+            return step, sync_fn
+
+        def run_stage(self, stage, engine):
+            st = super().run_stage(stage, engine)
+            J.steps.append(list(self._last_round_steps))
+            return st
+
+    class T(TS.VmapSimulatorBackend):
+        divs, ref_divs, steps = [], [], []
+
+        def _adaptive_fns(self, engine, b):
+            step_fn, sync_fn = super()._adaptive_fns(engine, b)
+
+            def step(*a):
+                out = step_fn(*a)
+                T.divs.append(float(out[1]))
+                # the JAX package's probe on the port's own replicas
+                T.ref_divs.append(float(JS.replica_divergence(jax.tree.map(
+                    jnp.asarray, params_to_numpy(a[0])))))
+                return out
+            return step, sync_fn
+
+        def run_stage(self, stage, engine):
+            st = super().run_stage(stage, engine)
+            T.steps.append(list(self._last_round_steps))
+            return st
+
+    return J, T
+
+
+@pytest.mark.parametrize("model,kw,tol", [
+    ("logreg", dict(reducer="dense"), 1e-5),
+    ("mlp", dict(reducer="dense", topology="streaming"), 1e-5),
+    ("logreg", dict(reducer="int8", momentum=0.9), 1e-4),
+    ("mlp", dict(reducer="int8", topology="streaming"), 1e-4),
+])
+def test_adaptive_period_matches_jax(model, kw, tol):
+    """The divergence-triggered period: the same round lengths in every
+    stage, and the histories and ledgers as the fixed-period runs hold
+    them. The divergence probe: on every step, the port's value within
+    1e-5 relative of the JAX package's formula on the port's own
+    replicas; and the two runs' traces within 1e-5 relative of each other
+    on dense runs. On int8 runs the traces part by more once a code flips
+    at a floor() boundary (the reason for the 1e-4 history tolerance):
+    the consensus then moves by scale/(qmax·N) in one coordinate, and the
+    next steps' spread is measured around it (up to 1.5e-3 relative on the
+    MLP, whose ReLU kinks turn such a shift into a different gradient)."""
+    J, T = _adaptive_backends()
+    cfg = dict(algo="adaptive", eta1=0.5, T1=16, k1=4.0, n_stages=3,
+               batch_per_client=8, seed=0, **kw)
+    out = _run_pair(model, cfg, backends=(J, T))
+    _check(*out, tol)
+    assert T.steps == J.steps
+    assert len(T.divs) == len(J.divs) == out[0].report.iters_total
+    np.testing.assert_allclose(T.divs, T.ref_divs, rtol=1e-5, atol=0)
+    if kw["reducer"] == "dense":
+        np.testing.assert_allclose(T.divs, J.divs, rtol=1e-5, atol=0)
+    # the threshold fired some rounds before the stage's k-cap
+    caps = [s.k for s in out[2].stages]
+    assert any(n < cap for st, cap in zip(T.steps, caps) for n in st[:-1])
 
 
 def test_replica_divergence_matches_jax():
