@@ -110,12 +110,19 @@ def round_time(model: NetworkModel, n_bytes: int) -> float:
 def comm_summary_for(cfg, template, n_clients: int, n_rounds: int) -> dict:
     """comm_summary resolved from a TrainConfig's reducer/comm_*/topology
     fields — the one place a finished run's config + round count turns
-    into the modeled comm report."""
+    into the modeled comm report. Star configs (the default) give the flat
+    single-link report; hierarchical configs the per-hop breakdown, with
+    the hops' reducer names joined by "+" as its "reducer"."""
     from repro_torch.engine.engine import topology_for
+    from repro_torch.engine.topology import Star
 
     topo = topology_for(cfg)
-    return comm_summary(topo.reducer, template, n_clients, n_rounds,
-                        topo.network)
+    if isinstance(topo, Star):
+        return comm_summary(topo.reducer, template, n_clients, n_rounds,
+                            topo.network)
+    summ = topo.summary(template, n_clients, n_rounds)
+    summ["reducer"] = "+".join(h["reducer"] for h in summ["hops"])
+    return summ
 
 
 def comm_summary(reducer, template, n_clients: int, n_rounds: int,

@@ -5,8 +5,8 @@ schema (``AttentionConfig`` … ``ArchConfig``, ``ShapeConfig``/``SHAPES``)
 and ``TrainConfig``, with the same fields and defaults, so one config value
 means the same model and run in both packages. Which archs the port's
 models can build is decided in ``configs/__init__.py``. ``topology``
-accepts "star" and "streaming" here; the hierarchical topology waits for a
-later slice.
+accepts the JAX package's specs: "star", "streaming" and the two-level
+"hier" / "streaming-hier" (``n_pods``, ``inter_reducer``).
 """
 from __future__ import annotations
 
@@ -151,15 +151,11 @@ class TrainConfig:
     comm_bandwidth_gbps: float = 1.0  # β⁻¹: link bandwidth
     # communication topology (repro.engine): "star" is the paper's flat
     # parameter-server setting; "hier" splits clients into n_pods pods —
-    # ``reducer`` runs intra-pod over calibrated ICI, ``inter_reducer``
-    # inter-pod over the comm_latency_s/comm_bandwidth_gbps WAN link.
-    # Honored by both front-ends: the vmapped simulator reduces through
-    # engine.Hierarchical, and the StagewiseDriver executes the same
-    # two-level round via a local_sgd.build_sync_step(hierarchical=True,
-    # n_pods=..., inter_reducer=...) sync step (whose tags must agree with
-    # these fields — the driver refuses mismatches so the ledger always
-    # prices the round the collectives execute). n_pods=1 degenerates to
-    # the flat star round bit-exactly (no inter-pod link exists).
+    # ``reducer`` runs intra-pod over the reference's ICI link preset,
+    # ``inter_reducer`` inter-pod over the comm_latency_s/comm_bandwidth_gbps
+    # WAN link. The vmapped simulator and the event runtime reduce through
+    # engine.Hierarchical. n_pods=1 degenerates to the flat star round
+    # bit-exactly (no inter-pod link exists).
     topology: str = "star"
     n_pods: int = 2
     inter_reducer: str = "int8"

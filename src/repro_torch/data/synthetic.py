@@ -1,9 +1,10 @@
 """Synthetic datasets (no downloads), as numpy arrays.
 
 ``make_binary_classification`` mimics the paper's a9a / MNIST-binary setup
-(sparse features, labels in {−1, +1}). It is the same numpy recipe as the
-JAX package's ``data/synthetic.py``, so one seed gives one dataset in
-both packages.
+(sparse features, labels in {−1, +1}); ``make_multiclass_images`` mimics
+CIFAR-10 (32×32×3, 10 classes) for the non-convex experiments. Both are
+the same numpy recipes as the JAX package's ``data/synthetic.py``, so one
+seed gives one dataset in both packages.
 """
 from __future__ import annotations
 
@@ -20,3 +21,14 @@ def make_binary_classification(n: int = 32561, d: int = 123, seed: int = 0,
     margin = x @ w_true + noise * rng.randn(n).astype(np.float32)
     y = np.where(margin > np.median(margin), 1.0, -1.0).astype(np.float32)
     return x, y
+
+
+def make_multiclass_images(n: int = 10000, n_classes: int = 10, hw: int = 32,
+                           seed: int = 0):
+    """CIFAR-like: class-conditional Gaussian blobs + structured noise.
+    Returns x (n, hw, hw, 3) float32 (NHWC) and y (n,) int32."""
+    rng = np.random.RandomState(seed)
+    y = rng.randint(0, n_classes, size=n)
+    protos = rng.randn(n_classes, hw, hw, 3).astype(np.float32)
+    x = 0.6 * protos[y] + 0.8 * rng.randn(n, hw, hw, 3).astype(np.float32)
+    return x.astype(np.float32), y.astype(np.int32)

@@ -23,6 +23,7 @@ from repro_torch.engine.policy import (
     SyncPolicy,
 )
 from repro_torch.engine.topology import (
+    Hierarchical,
     HopCost,
     LeafCost,
     Star,
@@ -46,6 +47,7 @@ __all__ = [
     "EveryStep",
     "FixedPeriod",
     "GrowingBatchUpdate",
+    "Hierarchical",
     "HopCost",
     "LargeBatchUpdate",
     "LeafCost",

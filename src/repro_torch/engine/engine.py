@@ -78,7 +78,9 @@ def topology_for(cfg, reducer=None, topology=None) -> Topology:
     """Resolve a Topology from a TrainConfig's comm fields.
 
     Priority: explicit ``topology`` arg > cfg.topology string. The reducer
-    (explicit arg > cfg.reducer) becomes the Star uplink reducer.
+    (explicit arg > cfg.reducer) becomes the Star uplink reducer, or the
+    intra-pod reducer of a hierarchical topology (whose inter-pod reducer
+    comes from cfg.inter_reducer, over cfg.n_pods pods).
     """
     if isinstance(topology, Topology):
         return topology
@@ -88,7 +90,8 @@ def topology_for(cfg, reducer=None, topology=None) -> Topology:
     return get_topology(
         topology if topology is not None else cfg.topology,
         reducer=reducer if reducer is not None else cfg.reducer,
-        network=net, quant_bits=cfg.quant_bits, topk_frac=cfg.topk_frac)
+        network=net, n_pods=cfg.n_pods, inter_reducer=cfg.inter_reducer,
+        quant_bits=cfg.quant_bits, topk_frac=cfg.topk_frac)
 
 
 class Engine:

@@ -41,9 +41,10 @@ server model is never written in place (``merge`` returns a new tree), so
 the tree a client pulled stays the reference its delta is taken from; and
 a dropped job's moments are restored from a copy taken before it.
 
-The JAX package's hierarchical branches (a serial inter-pod hop, the
-per-leaf streamed WAN hop) wait for the port's ``Hierarchical`` topology,
-which ``engine.get_topology`` still refuses.
+Under a two-level ``engine.Hierarchical`` topology the clients' uploads
+are the intra-pod hop; the inter-pod hop is added to each barrier
+serially, or, when the schedule streams the whole round, forwarded leaf
+by leaf over the WAN as soon as every pod holds the leaf.
 """
 from __future__ import annotations
 
@@ -67,7 +68,7 @@ from repro_torch.core.simulate import (
 )
 from repro_torch.engine.algorithm import get_algorithm, make_async
 from repro_torch.engine.engine import Engine, StageStatus
-from repro_torch.engine.topology import Star
+from repro_torch.engine.topology import Hierarchical, Star
 from repro_torch.obs.trace import (CAT_COMM, CAT_COMPUTE, CAT_CONTROL,
                                    CAT_MERGE, VIRTUAL)
 from repro_torch.runtime.client import Heterogeneity, sample_clients
@@ -174,8 +175,17 @@ class EventBackend(VmapSimulatorBackend):
         self.asynchronous = bool(
             getattr(engine.algorithm.sync_policy, "asynchronous", False))
 
-        first_hop = engine.topology.reducer
+        topo = engine.topology
+        # the clients' uploads: the Star's uplink, or the intra-pod hop
+        first_hop = (topo.intra if isinstance(topo, Hierarchical)
+                     else topo.reducer)
         self._msg_bytes = first_hop.message_bytes(self.init_params)
+        hops = topo.hop_costs(self.init_params, self.N)
+        # hops beyond the first add to the barrier serially — except the
+        # downlink, which broadcast_events prices per client after the
+        # merge, and (below) a per-leaf-streamed WAN hop
+        self._extra_hop_time = sum(h.time_s for h in hops[1:]
+                                   if h.hop != "downlink")
 
         # upload schedule: what events one client's round-end message emits.
         # Per-leaf payload bytes come from the uplink reducer; per-leaf
@@ -204,6 +214,24 @@ class EventBackend(VmapSimulatorBackend):
         # reducer; per-client pricing happens in schedule.broadcast_events
         self._down_bytes = DenseMean().leaf_message_bytes(self.init_params)
         self._ready = [0.0] * self.N   # per-client next-round start times
+        # streaming∘hierarchical: the full streaming schedule forwards each
+        # leaf over the inter-pod WAN link as soon as every pod holds it,
+        # overlapping the WAN hop with the intra-pod reduction of the
+        # remaining leaves (in place of the serial _extra_hop_time)
+        self._stream_wan = (isinstance(topo, Hierarchical)
+                            and self.schedule.streams_round)
+        if self._stream_wan:
+            if not supports_leaf_bytes(topo.inter):
+                raise ValueError(
+                    f"inter-pod reducer {topo.inter!r} has no per-leaf "
+                    "payload accounting (leaf_message_bytes); streaming "
+                    "the WAN hop needs it — implement the per-leaf "
+                    "protocol or use upload_schedule='streaming-uplink'")
+            self._wan_leaf_bytes = [
+                topo.n_pods * b
+                for b in topo.inter.leaf_message_bytes(self.init_params)]
+            self._wan_net = topo.inter_net
+            self._extra_hop_time = 0.0
         if self.asynchronous and self.schedule.name != "blocking":
             raise ValueError(
                 f"upload_schedule={self.schedule.name!r} prices per-leaf "
@@ -303,6 +331,39 @@ class EventBackend(VmapSimulatorBackend):
     def _vseries(self, name: str, unit: str, help: str):
         return self._series.series(name, clock=VIRTUAL, unit=unit, help=help)
 
+    def _stream_wan_hop(self, leaf_max: List[float], tracer):
+        """Stream the inter-pod WAN hop per leaf (streaming∘hierarchical).
+
+        Leaf l can cross the WAN once every pod holds its reduced value —
+        ``leaf_max[l]``, the latest intra-pod arrival. Leaves forward in
+        reverse-leaf order over one serial WAN stream: α_wan is paid once
+        when the stream opens, then each leaf serializes at β_wan as soon
+        as it is ready and the link is free. Returns ``(leaf_done,
+        merge_t)``: per-leaf global-consensus times and the barrier merge
+        (the last leaf's WAN landing).
+        """
+        net = self._wan_net
+        link_free = None
+        leaf_done = [0.0] * len(self._wan_leaf_bytes)
+        merge_t = 0.0
+        for leaf in range(len(self._wan_leaf_bytes) - 1, -1, -1):
+            ready = leaf_max[leaf]
+            if link_free is None:
+                link_free = ready + net.latency_s  # WAN stream opens once
+            send = max(ready, link_free)
+            ser = self._wan_leaf_bytes[leaf] / net.bandwidth_Bps
+            fin = send + ser
+            link_free = fin
+            leaf_done[leaf] = fin
+            merge_t = max(merge_t, fin)
+            self.trace.append((fin, "wan_leaf", -1, leaf))
+            if tracer:
+                tracer.add("reduce_leaf", fin - ser, fin, cat=CAT_COMM,
+                           track="server/wan", clock=VIRTUAL,
+                           attrs={"leaf": leaf, "hop": "inter_pod",
+                                  "bytes": self._wan_leaf_bytes[leaf]})
+        return leaf_done, merge_t
+
     def _broadcast_round(self, leaf_done: List[float], tracer) -> None:
         """Price each client's downlink and stage its next-round start.
 
@@ -399,12 +460,17 @@ class EventBackend(VmapSimulatorBackend):
                 if ev.kind == "leaf_arrival":
                     leaf = ev.info[0]
                     leaf_max[leaf] = max(leaf_max[leaf], ev.time)
-            if self.schedule.streams_round:
-                # the server finishes leaf l at its last arrival
+            if self._stream_wan:
+                # per-leaf WAN forwarding replaces the serial barrier add
+                leaf_done, merge_t = self._stream_wan_hop(leaf_max, tracer)
+            elif self.schedule.streams_round:
+                # flat star: the server finishes leaf l at its last arrival
+                merge_t += self._extra_hop_time
                 leaf_done = leaf_max
             else:
                 # blocking barrier (or uplink-only streaming): the whole
-                # round merges at once
+                # round merges at once, extra hops added serially
+                merge_t += self._extra_hop_time
                 leaf_done = [merge_t] * len(self._down_bytes)
             self.clock.advance(merge_t)
             self.trace.append((merge_t, "merge", -1))

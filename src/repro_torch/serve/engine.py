@@ -23,7 +23,8 @@ Two timelines
 -------------
 Time is *modeled* on the ``runtime.clock`` virtual clock: arrivals come
 from ``traffic.offered_load``, prefills and decode steps advance the clock
-by roofline prices (``launch/flops.py`` over ``DeviceModel``). Same traffic
+by roofline prices (``launch/flops.py`` over ``DeviceModel``, plus an
+α–β activation all-reduce when the modeled mesh has >1 chip). Same traffic
 seed ⇒ identical event order and latency ledger. Host wall time is
 measured alongside and never fed back into scheduling.
 """
@@ -35,6 +36,7 @@ from typing import Dict, List, Optional
 
 import torch
 
+from repro_torch.comm.cost import NetworkModel, link_model
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.serving import build_prefill_step, build_serve_step
 from repro_torch.launch.flops import shape_flops
@@ -57,28 +59,36 @@ H100_HBM_BW = 3.35e12
 class DeviceModel:
     """Hardware model pricing one serve step in modeled seconds.
 
-    Roofline: ``max(step_flops / peak, hbm_bytes / bw)`` for one chip.
-    Defaults are the H100 SXM's (NVIDIA data sheet). More than one chip
-    needs the α–β link pricing of ``comm/cost.py::link_model`` across
-    chips, which comes with the hierarchical slice (ROADMAP queue 1), so
-    ``n_chips > 1`` raises.
+    Roofline: ``max(step_flops / (n_chips × peak), hbm_bytes / (n_chips ×
+    bw))``. Defaults are the H100 SXM's (NVIDIA data sheet). With
+    ``n_chips > 1`` the modeled mesh shards the step, and every step also
+    pays one α–β activation all-reduce on ``link`` (2 × tokens × d_model
+    bf16 bytes per layer, the ring-collective payload that model-sharded
+    decode cannot hide), as the JAX package prices it. The default link is
+    the JAX package's modeled ICI preset (``comm/cost.py::link_model``,
+    ``_REF_ICI_BW``), kept so that both packages price a step alike: a
+    modeling constant of the reference, not a measurement of any NVIDIA
+    interconnect.
     """
 
     peak_flops: float = H100_PEAK_FLOPS_BF16
     hbm_bw: float = H100_HBM_BW
     n_chips: int = 1
+    link: Optional[NetworkModel] = None    # default: link_model("ici")
 
-    def __post_init__(self):
-        if self.n_chips != 1:
-            raise NotImplementedError(
-                "DeviceModel prices one chip; multi-chip serving, priced "
-                "with comm/cost.py::link_model, waits (ROADMAP queue 1: "
-                "multi-chip DeviceModel)")
+    def _link(self) -> NetworkModel:
+        return self.link if self.link is not None else link_model("ici")
 
     def step_time_s(self, cfg: ArchConfig, shape: ShapeConfig) -> float:
         fr = shape_flops(cfg, shape)
-        return max(fr.step_flops / (self.n_chips * self.peak_flops),
-                   fr.hbm_bytes / (self.n_chips * self.hbm_bw))
+        t = max(fr.step_flops / (self.n_chips * self.peak_flops),
+                fr.hbm_bytes / (self.n_chips * self.hbm_bw))
+        if self.n_chips > 1:
+            tokens = shape.global_batch * (1 if shape.mode == "decode"
+                                           else shape.seq_len)
+            coll = 2.0 * tokens * cfg.d_model * 2.0 * cfg.n_layers
+            t += self._link().time(coll)
+        return t
 
 
 @dataclass

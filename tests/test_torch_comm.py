@@ -170,10 +170,14 @@ def test_get_reducer_and_topology_specs():
     assert get_reducer("topk", topk_frac=0.3).frac == 0.3
     with pytest.raises(ValueError):
         get_reducer("bogus")
-    with pytest.raises(NotImplementedError, match="later slice"):
-        get_topology("hier")
-    with pytest.raises(NotImplementedError):
-        topology_for(TrainConfig(topology="hier"))
+    # the hierarchical specs resolve as the JAX package resolves them
+    ours, ref = get_topology("hier"), j_get_topology("hier")
+    assert (type(ours).__name__, ours.name, ours.n_pods, ours.intra.name,
+            ours.inter.name) == (type(ref).__name__, ref.name, ref.n_pods,
+                                 ref.intra.name, ref.inter.name)
+    topo = topology_for(TrainConfig(topology="hier"))
+    assert (topo.name, topo.n_pods, topo.inter.name) == \
+        ("hierarchical", 2, "int8")
     # the staleness specs (async merge-on-arrival) resolve as the JAX
     # package resolves them
     for spec in ("staleness", "staleness-int8", "staleness-int4"):

@@ -710,3 +710,193 @@ class _HostKey:
 
     def bits(self, shape):
         return self.key.bits(shape).to(self.device)
+
+
+@pytest.fixture
+def f32_convs(cuda):
+    """cuDNN convolutions in float32, the function the CPU computes (TF32
+    is on for cuDNN by default); the previous setting restored after."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    yield cuda
+    torch.backends.cudnn.allow_tf32 = old
+
+
+def _stacked_mlp(dev, n=8, seed=0):
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_map
+
+    p0 = mlp.init_params(24, width=16, depth=3, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+    return tree_map(lambda t: (t[None] + 0.05 * torch.randn(
+        (n,) + tuple(t.shape), generator=g)).to(dev), p0)
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+@pytest.mark.parametrize("intra,inter", [("dense", "int8"), ("int8", "int8"),
+                                         ("topk", "dense")])
+def test_hierarchical_reduce_matches_cpu(cuda, intra, inter, streaming):
+    """The two-level round on the card against the CPU on the same bits:
+    consensus and every level's state within 1e-6 (a flipped int8 code
+    would move a residual by scale/qmax); int8 hops launch one quantize
+    and one dequant_mean per leaf per pod (intra) and per leaf (inter)."""
+    from repro_torch.engine import get_topology
+    from repro_torch.utils.rng import TorchKey
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    topo = get_topology("streaming-hier" if streaming else "hier",
+                        reducer=intra, inter_reducer=inter, topk_frac=0.2)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = _stacked_mlp(dev)
+        state = topo.init_state(st)
+        K.reset_launch_counts()
+        for r in range(2):
+            c, state = topo.reduce(st, state, _HostKey(TorchKey(r), dev))
+            st = tree_map(lambda x: x * 0.9, st)
+        out[dev] = (c, state, K.launch_counts())
+    (cc, sc, _), (cg, sg, counts) = out["cpu"], out["cuda"]
+    for a, b in zip(tree_leaves(cg) + tree_leaves(sg),
+                    tree_leaves(cc) + tree_leaves(sc)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-6, rtol=0)
+    n_leaves = len(tree_leaves(cc))
+    hops = 2 * (intra == "int8") + (inter == "int8")
+    assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
+        == 2 * n_leaves * hops
+
+
+@pytest.mark.parametrize("streaming", [False, True])
+def test_dense_dense_hierarchical_equals_star_on_the_card(cuda, streaming):
+    from repro_torch.engine import get_topology
+    from repro_torch.utils.rng import TorchKey
+    from repro_torch.utils.tree import tree_leaves
+
+    st = _stacked_mlp(cuda, seed=2)
+    hier = get_topology("streaming-hier" if streaming else "hier",
+                        reducer="dense", inter_reducer="dense")
+    star = get_topology("star")
+    a, _ = hier.reduce(st, hier.init_state(st), TorchKey(0, cuda))
+    b, _ = star.reduce(st, star.init_state(st), TorchKey(0, cuda))
+    assert all(torch.equal(x, y)
+               for x, y in zip(tree_leaves(a), tree_leaves(b)))
+
+
+def test_hier_runtime_schedules_on_the_card(cuda):
+    """Table 5d at a small size on the card: the MLP over the streaming
+    two-level int8 round with a billed downlink, under three schedules —
+    the same trace and ledger as the CPU run, parameters bit-equal across
+    schedules, one fused update per local step and (P + 1) quantize and
+    dequant_mean launches per leaf per round."""
+    from repro_torch import runtime
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data import make_binary_classification, partition_iid
+    from repro_torch.models import mlp
+    from repro_torch.utils.rng import TorchKey
+    from repro_torch.utils.tree import tree_leaves
+
+    x, y = make_binary_classification(n=256, d=32, seed=0)
+    data = {k: torch.from_numpy(v)
+            for k, v in partition_iid(x, y, 8, seed=1).items()}
+    p0 = mlp.init_params(32, width=16, depth=3)
+    res = {}
+    for sched in ("blocking", "streaming-uplink", "streaming"):
+        cfg = TrainConfig(algo="sync", eta1=0.1, T1=8, n_stages=2,
+                          batch_per_client=8, seed=0, reducer="int8",
+                          inter_reducer="int8", topology="streaming-hier",
+                          n_pods=2, count_downlink=True,
+                          comm_latency_s=1e-4, comm_bandwidth_gbps=0.45,
+                          straggler_frac=0.25, straggler_slowdown=4.0,
+                          upload_schedule=sched)
+        for dev in ("cpu", "cuda"):
+            xt, yt = (torch.from_numpy(a).to(dev) for a in (x, y))
+            K.reset_launch_counts()
+            res[sched, dev] = runtime.run(
+                lambda p, b: mlp.loss_fn(p, b, 1e-3), p0, data, cfg,
+                lambda p: mlp.full_objective(p, xt, yt, 1e-3), device=dev,
+                rng=_HostKey(TorchKey(0), dev))
+        counts = K.launch_counts()
+        g, c = res[sched, "cuda"], res[sched, "cpu"]
+        assert g.trace == c.trace and g.leaf_ledger == c.leaf_ledger
+        assert g.wall_clock_s == c.wall_clock_s
+        np.testing.assert_allclose([r.value for r in g.history],
+                                   [r.value for r in c.history], atol=1e-4,
+                                   rtol=0)
+        assert counts["fused_sgd_update"] == g.iters
+        assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
+            == 3 * 8 * g.rounds
+    blk = res["blocking", "cuda"]
+    for sched in ("streaming-uplink", "streaming"):
+        assert all(torch.equal(a, b) for a, b in
+                   zip(tree_leaves(res[sched, "cuda"].params),
+                       tree_leaves(blk.params)))
+    assert res["streaming", "cuda"].wall_clock_s < blk.wall_clock_s
+
+
+@pytest.mark.parametrize("net,hw", [("resnet18", 16), ("resnet18", 15),
+                                    ("vgg16", 32)])
+def test_cnn_matches_cpu(f32_convs, net, hw):
+    """ResNet18 / VGG16 (width 8) on the card against the CPU on the same
+    weights: logits within 1e-5 and gradients within 1e-4 of their largest
+    magnitude, as the CPU parity tests hold them to JAX."""
+    from repro_torch.models import cnn
+    from repro_torch.utils.tree import tree_leaves, tree_to
+
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn((3, hw, hw, 3), generator=g)
+    y = torch.tensor([1, 4, 7], dtype=torch.int32)
+    if net == "resnet18":
+        p, strides = cnn.init_resnet18(0, width=8, device="cpu")
+        fwd = lambda q, xb: cnn.apply_resnet18(q, strides, xb)
+    else:
+        p = cnn.init_vgg16(0, width=8, device="cpu")
+        fwd = cnn.apply_vgg16
+    out = {}
+    for dev in ("cpu", "cuda"):
+        q, xd, yd = tree_to(p, dev), x.to(dev), y.to(dev)
+        out[dev] = (fwd(q, xd), torch.func.grad(
+            lambda w: cnn.cross_entropy(fwd(w, xd), yd))(q))
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    torch.testing.assert_close(lg.cpu(), lc, rtol=0,
+                               atol=1e-5 * float(lc.abs().max()))
+    for a, b in zip(tree_leaves(gg), tree_leaves(gc)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0,
+                                   atol=1e-4 * float(b.abs().max()) + 1e-12)
+
+
+def test_cnn_simulator_runs_through_the_kernels(f32_convs):
+    """stl_nc1 int8 on ResNet18 (width 4, 16×16, 4 Non-IID clients) on the
+    card: one fused update per local step for the 38-leaf tree, one
+    quantize and one dequant_mean per leaf per round; the history within
+    the CPU parity tests' CNN tolerance of the CPU run on the same draws
+    (first round 1e-5, all 1e-3)."""
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import simulate
+    from repro_torch.data import make_multiclass_images, partition_paper
+    from repro_torch.models import cnn
+    from repro_torch.utils.rng import TorchKey
+
+    x, y = make_multiclass_images(n=64, hw=16, seed=0)
+    data = {k: torch.from_numpy(v) for k, v in
+            partition_paper(x, y, 4, iid_percent=0.0, seed=1).items()}
+    p0, strides = cnn.init_resnet18(0, width=4, device="cpu")
+    cfg = TrainConfig(algo="stl_nc1", eta1=0.005, T1=8, k1=4.0, n_stages=2,
+                      gamma_inv=0.01, iid=False, batch_per_client=4,
+                      momentum=0.9, reducer="int8", seed=0)
+    fwd = lambda p, xb: cnn.apply_resnet18(p, strides, xb)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        xt, yt = (torch.from_numpy(a).to(dev) for a in (x, y))
+        K.reset_launch_counts()
+        hist = simulate.run(lambda p, b: cnn.cross_entropy(fwd(p, b["x"]),
+                                                           b["y"]),
+                            p0, data, cfg,
+                            lambda p: cnn.cross_entropy(fwd(p, xt), yt),
+                            device=dev, chunk_rounds=2,
+                            rng=_HostKey(TorchKey(0), dev))
+        out[dev] = ([r.value for r in hist], hist[-1], K.launch_counts())
+    (vc, _, _), (vg, last, counts) = out["cpu"], out["cuda"]
+    np.testing.assert_allclose(vg[:2], vc[:2], atol=1e-5, rtol=0)
+    np.testing.assert_allclose(vg, vc, atol=1e-3, rtol=0)
+    assert counts["fused_sgd_update"] == last.iteration
+    assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
+        == 38 * last.round

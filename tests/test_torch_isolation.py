@@ -3,8 +3,8 @@
 Three checks: no ``jax`` / ``repro`` import anywhere in the port's
 sources (or in ``chip_smoke.py``); a fresh interpreter that imports every
 port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
-port's entry points (``core.simulate.run``, ``runtime.run``) refuse to
-run without CUDA unless asked for the CPU.
+port's entry points (``core.simulate.run``, ``runtime.run``, the CNN
+initializers) refuse to run without CUDA unless asked for the CPU.
 """
 import ast
 import os
@@ -56,6 +56,8 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.core.simulate" in mods
     assert "repro_torch.runtime.runtime" in mods
     assert "repro_torch.kernels.quantize.kernel" in mods
+    assert "repro_torch.models.cnn" in mods
+    assert "repro_torch.engine.topology" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -94,6 +96,11 @@ def test_run_without_device_needs_cuda():
                           logreg.init_params(4), data, cfg,
                           lambda p: torch.zeros(()), device="cpu")
         assert res.wall_clock_s > 0.0
+    from repro_torch.models import cnn
+
+    for init in (cnn.init_resnet18, cnn.init_vgg16):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            init(0, width=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate.resolve_device("cuda")
     assert simulate.resolve_device("cpu").type == "cpu"

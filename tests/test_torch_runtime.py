@@ -439,7 +439,8 @@ def test_runtime_refusals():
             (dict(async_mode=True, reducer="topk"), ValueError, "int<b>"),
             (dict(algo="adaptive", dropout_rate=0.1), ValueError,
              "AdaptivePeriod"),
-            (dict(topology="hier"), NotImplementedError, "later slice")):
+            (dict(async_mode=True, topology="hier"), ValueError,
+             "flat star")):
         with pytest.raises(exc, match=match):
             TR.run(*args, TrainConfig(**_cfg(**kw)), ev, device="cpu")
     with pytest.raises(ValueError, match="topology"):

@@ -271,9 +271,21 @@ def test_mamba2_serve_cli_smoke_on_cpu():
 
 
 def test_device_model_prices_one_chip_only():
-    with pytest.raises(NotImplementedError, match="link_model"):
-        DeviceModel(n_chips=4)
+    """One chip pays no link term; more chips pay the reference's α–β
+    activation all-reduce per step, priced as the JAX package prices it."""
+    from repro.configs.base import SHAPES as J_SHAPES
+    from repro_torch.configs.base import SHAPES
+
     assert DeviceModel().peak_flops == 989e12
+    cfg, jcfg = get_arch("gemma2-27b"), jax_get_arch("gemma2-27b")
+    shape = SHAPES["decode_32k"]
+    one, four = DeviceModel(), DeviceModel(n_chips=4)
+    assert four.step_time_s(cfg, shape) > one.step_time_s(cfg, shape) / 4
+    for n_chips in (1, 4):
+        ours = DeviceModel(n_chips=n_chips, **PRICES)
+        ref = JDeviceModel(n_chips=n_chips, **PRICES)
+        assert ours.step_time_s(cfg, shape) == \
+            ref.step_time_s(jcfg, J_SHAPES["decode_32k"])
 
 
 def test_serve_cli_smoke_on_cpu():
