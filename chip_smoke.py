@@ -187,9 +187,52 @@ failure propagates, so the script exits non-zero and prints no result.
      and timed as in phase 3: ResNet18's largest leaf (8, 2,359,296), its
      head (8, 5,120), a scale (8, 64) and the whole stacked tree through
      ``tree_sgd_update_``. Convolutions run in float32 (TF32 off).
- 16. One ``{"kernels": [...]}`` summary line (all five kernels, launches
-     over every path driven), then the last line
-     ``{"ok": true, "device": {...}}``.
+ 16. Transformer training (``core/local_sgd.py``, ``StagewiseDriver``,
+     the launcher's path). (a) The flash-attention autograd Function on
+     the card at qwen3-14b's training layer (2, 1,024, 40/8, 128) in bf16,
+     at 16b's layer (2, 64, 4/2, 64) in float32 and a float32 shape with a
+     window and a softcap: the kernel route's
+     output has a grad_fn and is held to the plain version as in phase 5;
+     dq, dk, dv equal autograd through the plain version bit for bit;
+     timed: the kernel's forward, the plain backward a layer runs, its
+     bound (five products of 2·D FLOPs a visible pair, or bytes) and
+     SDPA's forward + backward at the causal shape, held to the plain
+     version first (output as phase 5, gradients within 2e-2 of their
+     norm). (b) qwen3-14b SMOKE in float32, 2 clients, stl_sc 2 stages
+     (24 local steps), the card against the CPU from one state on the
+     same batches and sync draws, under dense Star, int8 Star and the
+     two-level round (2 pods, dense + int8): stage results and ledgers
+     equal, stage mean losses within 1e-4 (dense) and 1e-3 (int8)
+     relative, each leaf's update (final − start) and moment within 1e-4
+     (dense) and 2e-2 (int8) of its norm; launches: the flash forward
+     twice a layer a client a step (forward and remat recompute), one
+     fused update a client a step, one quantize and one dequant_mean a
+     leaf a round. A control, the dense run with the flash output
+     detached (no gradient reaches wq, wk, wv and the q/k norms), must
+     fail the state check. (c) qwen3-14b at
+     full width (d_model 5,120, 40/8 heads of 128, d_ff 17,408, vocab
+     151,936 padded to 152,064, bf16, seed 0), depth cut to 2 of 40
+     layers; 2 clients, 2 sequences of 1,024 tokens a client a step from
+     ``make_token_stream`` (IID); stl_sc eta1 0.03, k1 4, T1 16, 2
+     stages (48 local steps, 8 rounds), dense Star: the loss finite and
+     the last stage's mean below the first's, the launches as in (b),
+     the ledger equal to rounds x clients x the bf16 bytes of a replica;
+     one client's fused update at the trained state (its 14 bf16 leaves,
+     float32 moments, the real gradient in bf16 and in float32; one
+     launch) bit-equal to the plain version, with its time and bound;
+     ms a step against its bound (GEMMs and attention at 989 TFLOP/s),
+     peak memory, a profile of 4 local steps (busy share; device time
+     of the GEMMs, the flash forward, the plain attention backward, the
+     fused update, the loss's log-softmax); then one stage of
+     topology "streaming" from the same start, bit-equal to a blocking
+     stage. Each cut is logged. Then the three training kernels at the
+     (2, n) blocks 16b's int8 rounds hand them (each leaf size of qwen3
+     SMOKE), as in phase 3.
+ 17. One ``{"kernels": [...]}`` summary line (all five kernels; launches
+     summed over each path's measured run: phases 4 and 11-15's, 16b's
+     three card runs and 16c's main run, not the comparison launches, the
+     profiles or 16c's streaming check; the flash row carries phase 16a
+     as ``train``), then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -730,7 +773,8 @@ def busy_union_us(torch, prof) -> float:
     cannot pass 100% as the sum over kernels can)."""
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not getattr(e, "is_user_annotation", False))
     total, end = 0.0, None
     for a, b in spans:
         if end is None or a > end:
@@ -2301,6 +2345,594 @@ def cnn_trees(torch) -> dict:
     return random_trees(torch, 7, {"resnet18 tree": (p0, TABLE2["clients"])})
 
 
+# phase 16: transformer training. The flash cases of 16a: qwen3-14b's
+# training layer (2 sequences of 1,024 tokens, 40/8 heads of 128) in bf16,
+# 16b's layer (qwen3-14b SMOKE in float32: 2 sequences of 64 tokens, 4/2
+# heads of 64, causal) and a small float32 shape with a window and a softcap
+TRAIN_FLASH_CASES = {"qwen3 train": (2, 1024, 40, 8, 128, "bf16", None, None),
+                     "qwen3 smoke f32": (2, 64, 4, 2, 64, "f32", None, None),
+                     "f32 window softcap": (1, 200, 4, 2, 64, "f32", 64,
+                                            30.0)}
+# SDPA's gradients against the plain version's, both in bf16: each of dq,
+# dk, dv within 2e-2 of the plain gradient's norm (the flash backward keeps
+# P and dS in bf16; the plain version rounds only its outputs)
+SDPA_GRAD_TOL = 2e-2
+# 16b: qwen3-14b SMOKE in float32, the card against the CPU on the same
+# draws; the stages' mean losses within the first relative tolerance
+# (dense: cuBLAS and the f32 flash kernel sum in other orders; an int8 hop
+# may flip a code where the two runs straddle a floor() boundary). The
+# second holds each leaf of the final state: the parameters' updates
+# (p_final − p_start) and the moments, card against CPU, each as the norm
+# of the difference over the CPU's norm. A flipped code moves a few
+# elements by a quantum (1/127 of a row's largest delta), by itself far
+# under 1e-3 of a leaf's update; but it moves the next gradients, and the
+# flips compound over the rounds, so an int8 run's state drifts from the
+# other's by more than a dense run's. Each is about 7x the largest
+# reading on an H100 (dense 1.3e-5, int8 3.0e-3); a leaf that does not
+# train (its gradient dropped) is off by 1.
+LM_CHECK = {"clients": 2, "batch": 2, "seq": 64, "T1": 8, "k1": 2.0,
+            "stages": 2, "eta1": 0.05}
+LM_CHECK_RUNS = {"dense star": (dict(reducer="dense"), 1e-4, 1e-4),
+                 "int8 star": (dict(reducer="int8"), 1e-3, 2e-2),
+                 "hier dense+int8": (dict(reducer="dense", topology="hier",
+                                          n_pods=2, inter_reducer="int8"),
+                                     1e-3, 2e-2)}
+# 16c: qwen3-14b at full width, its depth cut to 2 of 40 layers. eta1
+# 0.03: in a sweep of this configuration at 0.0025, 0.01, 0.03 and 0.1,
+# most bf16 weights' steps rounded away at 0.0025 and the loss hardly
+# moved; 0.03 is the middle of the rates under which it fell
+QWEN3_TRAIN = {"layers": 2, "clients": 2, "batch": 2, "seq": 1024,
+               "T1": 16, "k1": 4.0, "stages": 2, "eta1": 0.03,
+               "profile_steps": 4}
+
+
+def flash_train_case(torch, dev, B, S, H, KV, D, dt, window, cap, seed=11):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn((B, S, H, D), generator=g, device=dev)
+    q = (q * (cap / 4 if cap else 1.0)).to(dt)
+    k, v, dout = (torch.randn(shape, generator=g, device=dev).to(dt)
+                  for shape in ((B, S, KV, D), (B, S, KV, D), (B, S, H, D)))
+    return q, k, v, dout
+
+
+def check_flash_grad(torch) -> dict:
+    """Phase 16a: the flash Function's gradients on the card. The kernel
+    route's output has a grad_fn and is held to the plain version; its
+    dq, dk, dv equal autograd through the plain version bit for bit. Times:
+    the kernel's forward, the plain backward a layer takes (the
+    Function's recompute and vector-Jacobian product), and, at the causal
+    shape, SDPA's forward + backward (held to the plain version first)."""
+    from repro_torch.kernels.flash_attention import kernel as FK
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         plain_attention)
+    from repro_torch.kernels.flash_attention.ref import (attention_ref,
+                                                         bf16_mismatch)
+    from repro_torch.launch.flops import _attn_pairs
+
+    dev = torch.device("cuda:0")
+    types = {"bf16": torch.bfloat16, "f32": torch.float32}
+    rows = {}
+    for label, (B, S, H, KV, D, dtn, window, cap) in \
+            TRAIN_FLASH_CASES.items():
+        dt = types[dtn]
+        q, k, v, dout = flash_train_case(torch, dev, B, S, H, KV, D, dt,
+                                         window, cap)
+        ins = [t.clone().requires_grad_() for t in (q, k, v)]
+        n0 = FK.flash_attention.launches
+        out = flash_attention(*ins, window=window, softcap=cap)
+        grads = torch.autograd.grad(out, ins, dout, retain_graph=True)
+        pins = [t.clone().requires_grad_() for t in (q, k, v)]
+        plain = plain_attention(*pins, True, window, cap, None)
+        pgrads = torch.autograd.grad(plain, pins, dout, retain_graph=True)
+        torch.cuda.synchronize()
+        if out.grad_fn is None or FK.flash_attention.launches != n0 + 1:
+            raise AssertionError(f"flash {label}: the kernel route gave no "
+                                 f"grad_fn or launched "
+                                 f"{FK.flash_attention.launches - n0} times")
+        equal = [torch.equal(a, b) for a, b in zip(grads, pgrads)]
+        if not all(equal):
+            raise AssertionError(f"flash {label}: dq/dk/dv bit-equal to the "
+                                 f"plain route: {equal}")
+        ref = attention_ref(q, k, v, window=window, softcap=cap)
+        if dt == torch.bfloat16:
+            err, elem, row = bf16_mismatch(out.detach(), ref)
+            ok = elem <= 1.0 and row <= 1.0
+        else:
+            diff = (out.detach() - ref).abs()
+            err = float(diff.max())
+            elem, row = float((diff / (1e-5 + 1e-5 * ref.abs())).max()), None
+            ok = elem <= 1.0
+        if not ok:
+            raise AssertionError(f"flash {label}: output off the plain "
+                                 f"version: {err} ({elem}, {row} of tol)")
+        big = S >= 1024
+        fwd_ms = device_ms(torch, lambda: flash_attention(
+            q, k, v, window=window, softcap=cap), batch=10)
+        bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+            out, ins, dout, retain_graph=True), batch=2 if big else 10,
+            reps=10 if big else TIMING_REPS)
+        pairs = _attn_pairs(S, window, "prefill")
+        # the backward's least work: S = QK^T again, then dV, dP, dQ, dK:
+        # five products of 2·D FLOPs per visible (query, key) pair and head
+        n_flops = 10.0 * B * H * D * pairs
+        n_bytes = (3 * q.numel() + 4 * k.numel()) * q.element_size()
+        bms, by = bound_ms(n_bytes, n_flops,
+                           BF16_FLOPS if dt == torch.bfloat16 else F32_FLOPS)
+        lib = None
+        if window is None and cap is None:
+            sins = [t.clone().requires_grad_() for t in (q, k, v)]
+            so = sdpa_library(torch, *sins)
+            sg = torch.autograd.grad(so, sins, dout)
+            _, s_elem, s_row = bf16_mismatch(so.detach(), ref)
+            s_rel = [float((a.float() - b.float()).norm() / b.float().norm())
+                     for a, b in zip(sg, pgrads)]
+            log(f"[flash-grad] SDPA against the plain version: output "
+                f"{s_elem:.3f} / {s_row:.3f} of tol, gradients "
+                f"{[round(r, 5) for r in s_rel]} of their norm (tol "
+                f"{SDPA_GRAD_TOL})")
+            if not (s_elem <= 1.0 and s_row <= 1.0
+                    and max(s_rel) <= SDPA_GRAD_TOL):
+                raise AssertionError(f"SDPA {label} off the plain version")
+
+            def sdpa_fwd_bwd():
+                outs = sdpa_library(torch, *sins)
+                torch.autograd.grad(outs, sins, dout)
+
+            lib = device_ms(torch, sdpa_fwd_bwd, batch=2, reps=10)
+        rows[label] = {"shape": [B, S, H, KV, D], "dtype": dtn,
+                       "window": window, "softcap": cap,
+                       "grads_bit_equal": True, "max_abs_err": err,
+                       "fwd_ms": fwd_ms, "plain_bwd_ms": bwd_ms,
+                       "bwd_bound_ms": bms, "bwd_bound_by": by,
+                       "sdpa_fwd_bwd_ms": lib}
+        log(f"[flash-grad] {label} {(B, S, H, KV, D)} {dtn} window {window} "
+            f"softcap {cap}: dq/dk/dv bit-equal to the plain route; output "
+            f"max err {err:.3g}; kernel forward {fwd_ms:.4f} ms, plain "
+            f"backward {bwd_ms:.4f} ms (its bound {bms:.4f} ms, {by}), "
+            f"SDPA forward + backward "
+            f"{'-' if lib is None else f'{lib:.4f} ms'}")
+        del out, grads, plain, pgrads, ins, pins
+    torch.cuda.empty_cache()
+    return rows
+
+
+def lm_train(torch, cfg, dev, state, tcfg, *, clients, batch, seq,
+             rng=None, max_iters=None):
+    """One ``StagewiseDriver`` run of the port's transformer training from
+    ``state`` on ``dev``, over ``synthetic_batches`` (seed 0): the
+    launcher's path. Returns the DriverState."""
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.core.stl_sgd import StagewiseDriver
+    from repro_torch.launch.train import synthetic_batches
+
+    step, sync, _ = LS.build_train_steps(
+        cfg, dev, reducer=tcfg.reducer,
+        streaming=tcfg.topology == "streaming", rng=rng)
+    if tcfg.topology == "hier":
+        sync = LS.build_sync_step(tcfg.reducer, hierarchical=True,
+                                  n_pods=tcfg.n_pods,
+                                  inter_reducer=tcfg.inter_reducer, rng=rng)
+    batches = synthetic_batches(cfg, clients, batch, seq, seed=0, device=dev)
+    return StagewiseDriver(tcfg, step, sync).run(state, batches,
+                                                 max_iters=max_iters)
+
+
+def lm_launches(cfg, ds, clients: int, int8_messages: int) -> dict:
+    """The training path's launches: the flash forward twice a layer a
+    client a local step (the forward and its remat recompute), one fused
+    update a client a local step, one quantize and one dequant_mean a leaf
+    a round for each int8 message of a leaf (``int8_messages``)."""
+    from repro_torch.utils.tree import tree_leaves
+
+    n_leaves = len(tree_leaves(ds.state["params"]))
+    return {"flash_attention": 2 * cfg.n_layers * clients * ds.iters_total,
+            "fused_sgd_update": clients * ds.iters_total,
+            "quantize_kernel": int8_messages * n_leaves * ds.rounds_total,
+            "dequant_mean_kernel": int8_messages * n_leaves * ds.rounds_total}
+
+
+def lm_path_shapes() -> dict:
+    """The blocks 16b's int8 rounds hand quantize and dequant_mean: each
+    leaf of qwen3-14b SMOKE as (2, n) — two clients on the int8 Star, the
+    two pod means on the two-level round's inter hop (its intra hop is
+    dense, so no (1, n) pod block is quantized)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_arch("qwen3-14b", smoke=True).replace(dtype="float32")
+    p = transformer.to_grouped(
+        transformer.init_params(cfg, seed=0, device="cpu"), cfg)
+    sizes = sorted({t.numel() for t in tree_leaves(p)})
+    return {f"lm smoke leaf {n}": (LM_CHECK["clients"], n) for n in sizes}
+
+
+def check_lm_update(torch, cfg, state, q) -> dict:
+    """Phase 16c: the fused update at the path's own shapes. Client 0's
+    gradient at the trained state (``lm_loss`` on one of its batches),
+    then one ``tree_sgd_update_`` on client 0's row views of the stacked
+    bf16 leaves and their float32 moments — the launch each client makes
+    each local step, every leaf in one launch — against the plain version
+    on clones of the same rows, bit for bit: with the gradient in bf16
+    (the path's) and in float32 (the microbatch step's). The path's eta,
+    momentum 0.9 and weight decay 1e-4, so every term runs. The launch's
+    device time beside its bound (bytes)."""
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.kernels.fused_update.kernel import fused_sgd_update
+    from repro_torch.kernels.fused_update.ops import tree_sgd_update_
+    from repro_torch.kernels.fused_update.ref import sgd_update_ref
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    dev = tree_leaves(state["params"])[0].device
+    rows_p = [t[0] for t in tree_leaves(state["params"])]
+    rows_m = [t[0] for t in tree_leaves(state["opt"]["mu"])]
+    batch = next(synthetic_batches(cfg, q["clients"], q["batch"], q["seq"],
+                                   seed=2, device=dev))
+    live_tree = tree_map(lambda t: t[0].detach().requires_grad_(),
+                         state["params"])
+    live = tree_leaves(live_tree)
+    loss = LS.lm_loss(live_tree, cfg, tree_map(lambda x: x[0], batch))
+    grads = [g.contiguous() for g in torch.autograd.grad(loss, live)]
+    del live, live_tree, loss
+    torch.cuda.empty_cache()
+    eta, beta, wd = q["eta1"], 0.9, 1e-4
+    n = sum(t.numel() for t in rows_p)
+    out = {"leaves": len(rows_p), "elements": n}
+    for label in ("bf16 g", "f32 g"):
+        if label == "f32 g":
+            grads = [g.float() for g in grads]
+        p0 = [t.clone() for t in rows_p]
+        m0 = [t.clone() for t in rows_m]
+        n0 = fused_sgd_update.launches
+        tree_sgd_update_(rows_p, rows_m, grads, eta=eta, beta=beta, wd=wd)
+        torch.cuda.synchronize()
+        launched = fused_sgd_update.launches - n0
+        bad = []
+        for i, (p, m, g) in enumerate(zip(p0, m0, grads)):
+            wp, wm = sgd_update_ref(p, m, g, eta=eta, beta=beta, wd=wd)
+            if not (torch.equal(rows_p[i], wp) and torch.equal(rows_m[i], wm)):
+                bad.append(i)
+            del wp, wm
+        del p0, m0
+        torch.cuda.empty_cache()
+        ms = device_ms(torch, lambda: tree_sgd_update_(
+            rows_p, rows_m, grads, eta=1e-9, beta=beta), batch=1, reps=5)
+        g_bytes = grads[0].element_size()
+        bms, by = bound_ms(n * (2 + 4 + g_bytes + 2 + 4), 4 * n)
+        log(f"[lm-update] client 0's {len(rows_p)} bf16 leaves ({n} "
+            f"elements) with float32 moments, {label}: {launched} launch, "
+            f"{'bit-equal to the plain version' if not bad else f'leaves {bad} DIFFER'}"
+            f"; device {ms:.3f} ms, bound {bms:.3f} ms ({by})")
+        if launched != 1 or bad:
+            raise AssertionError(f"fused update of the LM rows ({label}): "
+                                 f"{launched} launches, leaves {bad} off "
+                                 f"the plain version")
+        out[label] = {"ms": ms, "bound_ms": bms, "bound_by": by,
+                      "bit_equal": True}
+    del grads
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_state_diff(torch, start, a, b) -> dict:
+    """Per leaf of the final states ``a`` (the card's) and ``b`` (the
+    CPU's), both from ``start``: ||Δa − Δb|| / ||Δb|| of the parameters'
+    updates (Δ = final − start) and ||a − b|| / ||b|| of the moments,
+    the largest of each over the leaves, with the leaf."""
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    def rel(x, y):
+        d = float((x.cpu() - y).norm())
+        n = float(y.norm())
+        return d / n if n > 0 else d
+
+    out = {}
+    p0 = tree_flatten_with_path(start["params"])[0]
+    for kind, ka, kb, k0 in (
+            ("params", a["params"], b["params"], p0),
+            ("opt", a["opt"], b["opt"], None)):
+        la = tree_flatten_with_path(ka)[0]
+        lb = tree_flatten_with_path(kb)[0]
+        worst = (0.0, None)
+        for i, ((path, x), (_, y)) in enumerate(zip(la, lb)):
+            if k0 is not None:
+                x, y = x.cpu() - k0[i][1], y - k0[i][1]
+            r = rel(x, y)
+            if r >= worst[0]:
+                worst = (r, path)
+        out[kind], out[kind + "_leaf"] = worst
+    return out
+
+
+def train_reference_check(torch) -> dict:
+    """Phase 16b: qwen3-14b SMOKE (float32) trained on the card against
+    the CPU from the same state, on the same batches and sync draws
+    (``HostKey``), under dense Star, int8 Star and the two-level round
+    (2 pods, dense + int8): stage results and ledgers equal, mean losses
+    and each leaf of the final state (the parameters' updates, the
+    moments) within ``LM_CHECK_RUNS``' tolerances, the launches of the
+    path. Then a control: the dense run on the card again with the flash
+    output detached from the graph (the fault the autograd Function
+    repairs), which the state check must refuse."""
+    from unittest import mock
+
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.utils.rng import TorchKey
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_arch("qwen3-14b", smoke=True).replace(dtype="float32")
+    c = LM_CHECK
+    base = LS.init_state(0, cfg, c["clients"], device="cpu")
+
+    def run(dev, tcfg):
+        d = torch.device(dev)
+        state = {"params": tree_map(lambda t: t.to(d, copy=True),
+                                    base["params"]),
+                 "opt": tree_map(lambda t: t.to(d, copy=True), base["opt"]),
+                 "step": 0}
+        return lm_train(torch, cfg, d, state, tcfg, clients=c["clients"],
+                        batch=c["batch"], seq=c["seq"],
+                        rng=HostKey(TorchKey(0), d))
+
+    def tcfg_of(kw):
+        return TrainConfig(algo="stl_sc", eta1=c["eta1"], T1=c["T1"],
+                           k1=c["k1"], n_stages=c["stages"], **kw)
+
+    launches, readings, cpu_dense = {}, {}, None
+    for label, (kw, tol, state_tol) in LM_CHECK_RUNS.items():
+        tcfg = tcfg_of(kw)
+        cpu = run("cpu", tcfg)
+        kernels.reset_launch_counts()
+        card = run("cuda:0", tcfg)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        shape = [(r.stage, r.k, r.iters, r.rounds) for r in cpu.results]
+        rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
+                  for a, b in zip(card.results, cpu.results))
+        diff = lm_state_diff(torch, base, card.state, cpu.state)
+        log(f"[lm-check] {label}: stages {shape}, mean losses card "
+            f"{[round(r.mean_loss, 6) for r in card.results]} vs CPU "
+            f"{[round(r.mean_loss, 6) for r in cpu.results]}, max rel diff "
+            f"{rel:.3g} (tol {tol}); final state, card against CPU: "
+            f"updates {diff['params']:.3g} ({diff['params_leaf']}), moments "
+            f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
+            f"{state_tol}); ledger {card.comm_bytes_total} B, launches "
+            f"{counts}")
+        if [(r.stage, r.k, r.iters, r.rounds) for r in card.results] != shape \
+                or not rel <= tol:
+            raise AssertionError(f"lm {label}: card against CPU: {rel}")
+        if not (diff["params"] <= state_tol and diff["opt"] <= state_tol):
+            raise AssertionError(f"lm {label}: final state, card against "
+                                 f"CPU: {diff}")
+        if (card.comm_bytes_total, card.comm_time_s, card.leaf_ledger) != \
+                (cpu.comm_bytes_total, cpu.comm_time_s, cpu.leaf_ledger):
+            raise AssertionError(f"lm {label}: ledgers differ")
+        want = lm_launches(cfg, card, c["clients"],
+                           int(kw["reducer"] == "int8"
+                               or kw.get("inter_reducer") == "int8"))
+        expect_launches(f"lm {label}", counts, want)
+        launches[label] = counts
+        readings[label] = dict(loss_rel=rel, **diff)
+        if label == "dense star":
+            cpu_dense = cpu
+        del card
+    torch.cuda.empty_cache()
+
+    # the control: the parent's fault, a flash output without a grad_fn
+    kw, tol, state_tol = LM_CHECK_RUNS["dense star"]
+    apply = FO.FlashAttention.apply
+    with mock.patch.object(FO.FlashAttention, "apply",
+                           lambda *a: apply(*a).detach()):
+        card = run("cuda:0", tcfg_of(kw))
+    torch.cuda.synchronize()
+    rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
+              for a, b in zip(card.results, cpu_dense.results))
+    diff = lm_state_diff(torch, base, card.state, cpu_dense.state)
+    log(f"[lm-check] control, flash output detached (dense star): mean "
+        f"losses max rel diff {rel:.3g} (tol {tol}), final state: updates "
+        f"{diff['params']:.3g} ({diff['params_leaf']}), moments "
+        f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
+        f"{state_tol}): refused")
+    if diff["params"] <= state_tol and diff["opt"] <= state_tol:
+        raise AssertionError(f"lm control: a detached flash output passes "
+                             f"the state check: {diff}")
+    readings["control flash detached"] = dict(loss_rel=rel, **diff)
+    del card
+    torch.cuda.empty_cache()
+    return {"launches": launches, "readings": readings}
+
+
+def lm_matmul_params(cfg) -> tuple:
+    """(matmul parameters of the whole model, of its layers): the weights
+    every token multiplies (the embedding is a gather)."""
+    from repro_torch.models.transformer import padded_vocab
+
+    a = cfg.attention
+    per_layer = (2 * cfg.d_model * a.n_heads * a.head_dim
+                 + 2 * cfg.d_model * a.n_kv_heads * a.head_dim
+                 + 3 * cfg.d_model * cfg.d_ff)
+    layers = cfg.n_layers * per_layer
+    return layers + cfg.d_model * padded_vocab(cfg), layers
+
+
+def profile_lm(torch, cfg, dev, state, tcfg, q) -> dict:
+    """Phase 16c's profile: torch.profiler over ``q["profile_steps"]``
+    local steps and their round, after the run. Device time by kind: the
+    cuBLAS GEMMs (the plain backward's products included), the flash
+    forward, the plain attention backward (its record_function range),
+    the fused update and the loss's log-softmax."""
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.launch.train import synthetic_batches
+
+    step, sync, _ = LS.build_train_steps(cfg, dev)
+    batches = synthetic_batches(cfg, q["clients"], q["batch"], q["seq"],
+                                seed=1, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    n = q["profile_steps"]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.monotonic()
+        for _ in range(n):
+            state, _ = step(state, next(batches), tcfg.eta1)
+        state = sync(state)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    avg = prof.key_averages()
+    cuda = torch.autograd.DeviceType.CUDA
+    # a record_function range shows on the device too, as a span over its
+    # kernels: keep it out of the kernels
+    kern = [e for e in avg if e.device_type == cuda
+            and not getattr(e, "is_user_annotation", False)]
+    out = {"steps": n, "ms_per_step": wall * 1e3 / n}
+    if not kern:
+        log(f"[lm-profile] {wall * 1e3 / n:.2f} ms a local step; device "
+            f"time not measured (no CUDA events traced)")
+        return out
+    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
+             "flash_forward": ("flash_fwd",),
+             "fused_update": ("fused_sgd_update",),
+             "loss_log_softmax": ("LogSoftMax",)}
+    ms = {k: sum(e.self_device_time_total for e in kern
+                 if any(p in e.key for p in pats)) / 1e3 / n
+          for k, pats in kinds.items()}
+    # the host-side range: the device time of the kernels launched in it
+    ms["attention_backward"] = sum(
+        e.device_time_total for e in avg
+        if e.key == "flash_attention.backward" and e.device_type != cuda
+    ) / 1e3 / n
+    busy = sum(e.self_device_time_total for e in kern) / 1e3
+    union = busy_union_us(torch, prof) / 1e3
+    out.update(kernels_per_step=sum(e.count for e in kern) / n,
+               busy_union_pct=100 * union / (wall * 1e3),
+               kernel_ms_per_step=busy / n, by_kind_ms_per_step=ms)
+    log(f"[lm-profile] {n} local steps and a round in {wall * 1e3:.1f} ms: "
+        f"{wall * 1e3 / n:.2f} ms a step, {out['kernels_per_step']:.0f} "
+        f"kernels a step, a kernel running {out['busy_union_pct']:.1f}% of "
+        f"the wall; device ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + " (the attention backward's products are among the GEMMs too)")
+    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"[lm-profile]   device {e.self_device_time_total / 1e3 / n:8.3f}"
+            f" ms a step x{e.count / n:6.1f}  {e.key[:90]}")
+    return out
+
+
+def run_qwen3_training(torch, dev="cuda:0") -> dict:
+    """Phase 16c: qwen3-14b at full width (2 of its 40 layers), bf16,
+    random weights from seed 0; 2 clients, 2 sequences of 1,024 tokens a
+    client a step (``make_token_stream``, IID); stl_sc, k1 4, T1 16, 2
+    stages (48 local steps), dense Star, through the launcher's path. The
+    loss finite and its last stage's mean below its first's, the launches
+    of the path, the ledger equal to the integer formula. Then one stage
+    of topology "streaming" from the same start, bit-equal to a blocking
+    stage; a profile of 4 local steps."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = torch.device(dev)
+    q = QWEN3_TRAIN
+    full = get_arch("qwen3-14b")
+    cfg = full.replace(n_layers=q["layers"])
+    log(f"[cut] phase 16c: qwen3-14b at full width, depth cut to "
+        f"{q['layers']} of {full.n_layers} layers; {q['stages']} stl_sc "
+        f"stages")
+
+    def tcfg(stages, topology="star"):
+        return TrainConfig(algo="stl_sc", eta1=q["eta1"], T1=q["T1"],
+                           k1=q["k1"], n_stages=stages, topology=topology)
+
+    state = LS.init_state(0, cfg, q["clients"], device=dev)
+    n_params = sum(t[0].numel() for t in tree_leaves(state["params"]))
+    state_gb = sum(t.numel() * t.element_size()
+                   for t in tree_leaves([state["params"], state["opt"]])) / 1e9
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    ds = lm_train(torch, cfg, dev, state, tcfg(q["stages"]),
+                  clients=q["clients"], batch=q["batch"], seq=q["seq"])
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [r.mean_loss for r in ds.results]
+    tokens = q["clients"] * q["batch"] * q["seq"]
+    mm_all, mm_layers = lm_matmul_params(cfg)
+    attn = cfg.attention
+    pairs = q["seq"] * (q["seq"] + 1) // 2
+    # GEMMs: forward + backward (6 FLOPs a parameter a token) and the
+    # layers' remat forward (2); attention: the flash forward twice, the
+    # backward (10·D a pair, as 16a)
+    n_flops = (tokens * (6 * mm_all + 2 * mm_layers)
+               + q["clients"] * q["batch"] * cfg.n_layers * attn.n_heads
+               * attn.head_dim * pairs * (4 + 4 + 10))
+    step_bound = n_flops / BF16_FLOPS * 1e3
+    per_client = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(ds.state["params"]))
+    log(f"[lm] qwen3-14b, {cfg.n_layers} layers: {n_params} parameters a "
+        f"client, state {state_gb:.2f} GB; {ds.iters_total} local steps, "
+        f"{ds.rounds_total} rounds in {wall:.2f} s "
+        f"({wall * 1e3 / ds.iters_total:.2f} ms a step, rounds included; "
+        f"bound {step_bound:.2f} ms a step: {n_flops / 1e12:.2f} TFLOP at "
+        f"989 TFLOP/s); eta1 {q['eta1']}; stage mean losses "
+        f"{[round(v, 4) for v in losses]}; peak memory {peak_gb:.2f} GB; "
+        f"comm bytes {ds.comm_bytes_total}; launches {counts}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"qwen3 training: stage losses {losses}")
+    if ds.comm_bytes_total != ds.rounds_total * q["clients"] * per_client:
+        raise AssertionError(f"qwen3 training: ledger {ds.comm_bytes_total}")
+    expect_launches("qwen3 training", counts,
+                    lm_launches(cfg, ds, q["clients"], 0))
+    out = {"params_per_client": n_params, "state_gb": state_gb,
+           "iters": ds.iters_total, "rounds": ds.rounds_total,
+           "wall_s": wall, "ms_per_step": wall * 1e3 / ds.iters_total,
+           "bound_ms_per_step": step_bound, "eta1": q["eta1"],
+           "stage_losses": losses, "peak_gb": peak_gb,
+           "comm_bytes": ds.comm_bytes_total, "launches": counts}
+    torch.cuda.empty_cache()
+    out["update_check"] = check_lm_update(torch, cfg, ds.state, q)
+    out["profile"] = profile_lm(torch, cfg, dev, ds.state, tcfg(1), q)
+    del ds, state
+    torch.cuda.empty_cache()
+
+    # one stage of the per-leaf streaming round from the same start,
+    # against one blocking stage
+    finals = {}
+    for topology in ("streaming", "star"):
+        ds = lm_train(torch, cfg, dev, LS.init_state(0, cfg, q["clients"],
+                                                     device=dev),
+                      tcfg(1, topology), clients=q["clients"],
+                      batch=q["batch"], seq=q["seq"])
+        finals[topology] = ([r.mean_loss for r in ds.results],
+                            [t.clone() for t in tree_leaves(
+                                ds.state["params"])] if topology ==
+                            "streaming" else tree_leaves(ds.state["params"]))
+        if topology == "streaming":
+            del ds
+    equal = finals["streaming"][0] == finals["star"][0] and all(
+        torch.equal(a, b) for a, b in zip(finals["streaming"][1],
+                                          finals["star"][1]))
+    log(f"[lm] one stage streaming against blocking: mean losses "
+        f"{finals['streaming'][0]} / {finals['star'][0]}, params "
+        f"{'bit-equal' if equal else 'DIFFER'}")
+    if not equal:
+        raise AssertionError("qwen3 training: streaming != blocking")
+    out["streaming_bit_equal"] = True
+    del finals, ds
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2411,7 +3043,24 @@ def main() -> int:
             launches[k] += part[k]
     log(f"[time] phase 15: {time.monotonic() - t0:.1f} s")
 
-    # phase 16: summary
+    # phase 16: transformer training — flash attention's gradients on the
+    # card, qwen3 SMOKE card against CPU, qwen3-14b at full width
+    t0 = time.monotonic()
+    flash_grad = check_flash_grad(torch)
+    lm_check = train_reference_check(torch)
+    lm = run_qwen3_training(torch)
+    lm["flash_grad"], lm["check"] = flash_grad, lm_check
+    # the training kernels at the blocks 16b's int8 rounds hand them
+    lm_shapes = lm_path_shapes()
+    path_rows.update(check_kernels(torch, lm_shapes, floor))
+    path_shapes = {**PATH_SHAPES, **lm_shapes}
+    # the launches of 16b's three card runs and of 16c's main run
+    for part in (*lm_check["launches"].values(), lm["launches"]):
+        for k in (*TRAIN_KERNELS, "flash_attention"):
+            launches[k] += part[k]
+    log(f"[time] phase 16: {time.monotonic() - t0:.1f} s")
+
+    # phase 17: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -2429,7 +3078,7 @@ def main() -> int:
                     "max_abs_err": max(
                         [rows[(kname, s)]["max_abs_err"] for s in shapes]
                         + [path_rows[(kname, s)]["max_abs_err"]
-                           for s in PATH_SHAPES]
+                           for s in path_shapes]
                         + [cnn_rows[(kname, s)]["max_abs_err"]
                            for s in CNN_SHAPES]),
                     "ms": r["ms"], "plain_ms": r["plain_ms"],
@@ -2442,13 +3091,13 @@ def main() -> int:
                               "library_ms": big["library_ms"],
                               "bound_ms": big["bound_ms"]}})
         # phases 11-13's blocks: the async path's (1, M) ones, the
-        # stacked logreg leaf of Tables 4 and 5
+        # stacked logreg leaf of Tables 4 and 5; phase 14's; 16b's
         out[-1]["path_shapes"] = {
             label: {k: path_rows[(kname, label)][k]
                     for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                               "bound_by", "launch_floor_ms", "call_ms",
                               "host_ms", "max_abs_err")}
-            for label in PATH_SHAPES}
+            for label in path_shapes}
         # phase 15's blocks: ResNet18's largest leaf, its head, a scale
         out[-1]["cnn_shapes"] = {
             label: {k: cnn_rows[(kname, label)][k]
@@ -2460,6 +3109,7 @@ def main() -> int:
             out[-1]["tree"] = trees   # each whole tree, one launch
             out[-1]["path_trees"] = path_tree_rows
             out[-1]["cnn_tree"] = cnn_tree_rows
+            out[-1]["lm_client_tree"] = lm["update_check"]
         if kname == "quantize_kernel":   # the scalar instantiation
             out[-1]["odd_view"] = {
                 label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
@@ -2469,11 +3119,16 @@ def main() -> int:
                 "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
                 "replaces": "src/repro/kernels/flash_attention/kernel.py:75",
                 "launches": launches["flash_attention"],
-                "max_abs_err": max(r["max_abs_err"] for r in flash.values()),
+                "max_abs_err": max([r["max_abs_err"] for r in flash.values()]
+                                   + [r["max_abs_err"]
+                                      for r in flash_grad.values()]),
                 "ms": g["ms"], "plain_ms": g["plain_ms"],
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "library_ms": g["library_ms"], "shape": g["shape"],
-                "shapes": flash})
+                "shapes": flash, "train": flash_grad,
+                "train_launches": lm["launches"]["flash_attention"]
+                + sum(v["flash_attention"]
+                      for v in lm_check["launches"].values())})
     m = ssd_rows["layer"]  # mamba2-2.7b's layer at a 4,096-token prefill
     out.append({"name": "ssd", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -2487,7 +3142,7 @@ def main() -> int:
                     "serve": serve, "serve_mamba2": serve_m,
                     "adaptive": adaptive, "runtime_sync": runtime_sync,
                     "runtime_async": runtime_async, "hierarchical": hier,
-                    "cnn": cnn_run, "card": smi}))
+                    "cnn": cnn_run, "lm_train": lm, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

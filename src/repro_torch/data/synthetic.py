@@ -2,9 +2,11 @@
 
 ``make_binary_classification`` mimics the paper's a9a / MNIST-binary setup
 (sparse features, labels in {−1, +1}); ``make_multiclass_images`` mimics
-CIFAR-10 (32×32×3, 10 classes) for the non-convex experiments. Both are
-the same numpy recipes as the JAX package's ``data/synthetic.py``, so one
-seed gives one dataset in both packages.
+CIFAR-10 (32×32×3, 10 classes) for the non-convex experiments;
+``make_token_stream`` produces LM token shards with per-client Zipf skew
+for language-model training, and ``batch_iterator`` windows over one. All
+are the same numpy recipes as the JAX package's ``data/synthetic.py``, so
+one seed gives one dataset in both packages.
 """
 from __future__ import annotations
 
@@ -32,3 +34,32 @@ def make_multiclass_images(n: int = 10000, n_classes: int = 10, hw: int = 32,
     protos = rng.randn(n_classes, hw, hw, 3).astype(np.float32)
     x = 0.6 * protos[y] + 0.8 * rng.randn(n, hw, hw, 3).astype(np.float32)
     return x.astype(np.float32), y.astype(np.int32)
+
+
+def make_token_stream(n_tokens: int, vocab: int, n_clients: int, seed: int = 0,
+                      non_iid: bool = False):
+    """Token shards (n_clients, n_tokens) int32 — Zipf-ish unigram LM data.
+
+    Non-IID: each client samples from a different random permutation of the
+    Zipf distribution (distinct head vocabulary per client).
+    """
+    rng = np.random.RandomState(seed)
+    ranks = np.arange(1, vocab + 1)
+    base_p = 1.0 / ranks
+    base_p /= base_p.sum()
+    shards = []
+    for c in range(n_clients):
+        p = base_p if not non_iid else base_p[rng.permutation(vocab)]
+        shards.append(rng.choice(vocab, size=n_tokens, p=p))
+    return np.stack(shards).astype(np.int32)
+
+
+def batch_iterator(tokens, batch: int, seq_len: int, seed: int = 0):
+    """Yield (tokens, labels) windows from a flat token shard."""
+    rng = np.random.RandomState(seed)
+    n = tokens.shape[-1] - seq_len - 1
+    while True:
+        starts = rng.randint(0, n, size=batch)
+        xs = np.stack([tokens[..., s: s + seq_len] for s in starts])
+        ys = np.stack([tokens[..., s + 1: s + seq_len + 1] for s in starts])
+        yield xs, ys

@@ -90,8 +90,8 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(build()))
         vp, i64, i32, f32 = (ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
                              ctypes.c_float)
-        lib.repro_fused_sgd_update.argtypes = [vp, i32, i32, i32, f32, f32,
-                                               f32, vp]
+        lib.repro_fused_sgd_update.argtypes = [vp, i32, i32, i32, i32, f32,
+                                               f32, f32, vp]
         lib.repro_quantize.argtypes = [vp, vp, vp, vp, i64, i64, f32, vp]
         lib.repro_dequant_mean.argtypes = [vp, vp, vp, i64, i64, f32, f32,
                                            vp]

@@ -6,9 +6,11 @@
 //   g += wd * p;  m' = beta * m + g;  p' = p - eta * m'
 //
 // in float32, with p' and m' written back in p's and m's own types
-// (float32 or bfloat16). The update runs IN PLACE. One launch covers a
-// whole table of leaves (each the N stacked client replicas of one
-// parameter leaf) of one (p type, m type) pair: the simulator's local step
+// (float32 or bfloat16); g is of p's type or float32 (a float32
+// accumulated microbatch gradient of a bfloat16 parameter is read as it
+// is, as the reference adds it in float32). The update runs IN PLACE. One
+// launch covers a whole table of leaves (each the N stacked client
+// replicas of one parameter leaf) of one (p type, m type, g type) triple: the simulator's local step
 // updates its whole parameter tree with one launch, where the TPU path and
 // this kernel's first version launched once per leaf. eta, beta and wd are
 // run-time arguments (eta changes every local step), where the Pallas
@@ -34,7 +36,7 @@
 //   one wave of resident blocks with a grid stride was no faster on the MLP
 //   tree and slower on a 400 MB one (PERF.md, section 6). The logreg leaf
 //   takes 49 blocks.
-// - A thread issues all its loads (16 bytes each of p and g, and m's 8, 16
+// - A thread issues all its loads (16 bytes of p, and m's and g's 8, 16
 //   or 32 bytes for the same elements) before its arithmetic. A leaf whose
 //   pointers are not all 16-byte aligned takes a scalar loop in the same
 //   launch (neighbouring threads on neighbouring elements); a vector cut by
@@ -115,7 +117,7 @@ struct Vec {
   }
 };
 
-template <typename TP, typename TM, int CAP>
+template <typename TP, typename TM, typename TG, int CAP>
 __global__ void __launch_bounds__(THREADS)
 fused_sgd_update_kernel(const __grid_constant__ LeafTable<CAP> t, float eta,
                         float beta, float wd) {
@@ -132,13 +134,14 @@ fused_sgd_update_kernel(const __grid_constant__ LeafTable<CAP> t, float eta,
   }
   TP* p = static_cast<TP*>(t.p[lo]);
   TM* m = static_cast<TM*>(t.m[lo]);
-  const TP* g = static_cast<const TP*>(t.g[lo]);
+  const TG* g = static_cast<const TG*>(t.g[lo]);
   const int64_t n = t.n[lo];
   const int64_t base = (int64_t)(tile - t.tile0[lo]) * TILE;
   const int64_t e0 = base + (int64_t)threadIdx.x * V;
   if (t.aligned[lo] && e0 + V <= n) {
-    Vec<TP, V> pv, gv;
+    Vec<TP, V> pv;
     Vec<TM, V> mv;
+    Vec<TG, V> gv;
     pv.load(p + e0);
     mv.load(m + e0);
     gv.load(g + e0);
@@ -171,7 +174,7 @@ fused_sgd_update_kernel(const __grid_constant__ LeafTable<CAP> t, float eta,
 }
 
 // Build the table of rows (p, m, g, n as int64 words) and launch.
-template <typename TP, typename TM, int CAP>
+template <typename TP, typename TM, typename TG, int CAP>
 cudaError_t launch(const int64_t* leaves, int n_leaves, float eta, float beta,
                    float wd, cudaStream_t stream) {
   constexpr int64_t TILE = THREADS * (16 / (int)sizeof(TP));
@@ -191,41 +194,59 @@ cudaError_t launch(const int64_t* leaves, int n_leaves, float eta, float beta,
     if (tiles > INT32_MAX) return cudaErrorInvalidValue;
   }
   t.tile0[n_leaves] = (int)tiles;
-  fused_sgd_update_kernel<TP, TM, CAP>
+  fused_sgd_update_kernel<TP, TM, TG, CAP>
       <<<(unsigned)tiles, THREADS, 0, stream>>>(t, eta, beta, wd);
   return cudaGetLastError();
 }
 
 // a one-leaf table for one leaf, else a full one
-template <typename TP, typename TM>
+template <typename TP, typename TM, typename TG>
 cudaError_t launch_cap(const int64_t* leaves, int n_leaves, float eta,
                        float beta, float wd, cudaStream_t stream) {
   if (n_leaves == 1)
-    return launch<TP, TM, 1>(leaves, 1, eta, beta, wd, stream);
-  return launch<TP, TM, MAX_LEAVES>(leaves, n_leaves, eta, beta, wd, stream);
+    return launch<TP, TM, TG, 1>(leaves, 1, eta, beta, wd, stream);
+  return launch<TP, TM, TG, MAX_LEAVES>(leaves, n_leaves, eta, beta, wd,
+                                        stream);
+}
+
+// g of p's type, or float32 with a bfloat16 p
+template <typename TP, typename TM>
+cudaError_t launch_g(const int64_t* leaves, int n_leaves, int p_dtype,
+                     int g_dtype, float eta, float beta, float wd,
+                     cudaStream_t stream) {
+  if (g_dtype == p_dtype)
+    return launch_cap<TP, TM, TP>(leaves, n_leaves, eta, beta, wd, stream);
+  if (p_dtype == 1 && g_dtype == 0)
+    return launch_cap<TP, TM, float>(leaves, n_leaves, eta, beta, wd, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // leaves: n_leaves rows of four int64 words (p, m, g pointers, element
-// count), 1 <= n_leaves <= 64, every count > 0; g has p's type. dtype
-// codes: 0 = float32, 1 = bfloat16. One launch for the whole table.
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).
+// count), 1 <= n_leaves <= 64, every count > 0; g has p's type, or is
+// float32 with a bfloat16 p. dtype codes: 0 = float32, 1 = bfloat16. One
+// launch for the whole table. Returns cudaGetLastError() after the launch
+// (0 = cudaSuccess).
 extern "C" int repro_fused_sgd_update(const int64_t* leaves, int n_leaves,
-                                      int p_dtype, int m_dtype, float eta,
-                                      float beta, float wd, void* stream) {
+                                      int p_dtype, int m_dtype, int g_dtype,
+                                      float eta, float beta, float wd,
+                                      void* stream) {
   if (n_leaves < 1 || n_leaves > MAX_LEAVES) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (p_dtype == 0 && m_dtype == 0) {
-    err = launch_cap<float, float>(leaves, n_leaves, eta, beta, wd, s);
+    err = launch_g<float, float>(leaves, n_leaves, p_dtype, g_dtype, eta,
+                                 beta, wd, s);
   } else if (p_dtype == 0 && m_dtype == 1) {
-    err = launch_cap<float, __nv_bfloat16>(leaves, n_leaves, eta, beta, wd, s);
+    err = launch_g<float, __nv_bfloat16>(leaves, n_leaves, p_dtype, g_dtype,
+                                         eta, beta, wd, s);
   } else if (p_dtype == 1 && m_dtype == 0) {
-    err = launch_cap<__nv_bfloat16, float>(leaves, n_leaves, eta, beta, wd, s);
+    err = launch_g<__nv_bfloat16, float>(leaves, n_leaves, p_dtype, g_dtype,
+                                         eta, beta, wd, s);
   } else if (p_dtype == 1 && m_dtype == 1) {
-    err = launch_cap<__nv_bfloat16, __nv_bfloat16>(leaves, n_leaves, eta, beta,
-                                                   wd, s);
+    err = launch_g<__nv_bfloat16, __nv_bfloat16>(leaves, n_leaves, p_dtype,
+                                                 g_dtype, eta, beta, wd, s);
   } else {
     return (int)cudaErrorInvalidValue;
   }

@@ -4,7 +4,8 @@ Replaces the Pallas TPU kernel ``src/repro/kernels/fused_update/kernel.py:33``
 (``fused_sgd_update``). The kernel is memory-bound: 20 bytes per float32
 element (3 reads, 2 writes), so its bound on an H100 SXM is bytes ÷
 3.35 TB/s, summed over the leaves of a launch. One launch covers a table of
-up to ``MAX_LEAVES`` stacked (N, …) leaves of one (p type, m type) pair:
+up to ``MAX_LEAVES`` stacked (N, …) leaves of one (p type, m type, g type)
+triple:
 the simulator's local step updates its whole tree in one launch, since at
 its shapes a launch costs more than the bytes. The table goes to the
 kernel by value, as a kernel parameter: no device allocation, no copy.
@@ -37,9 +38,10 @@ def check_inputs(p, m, g):
     if p.dtype not in _DTYPE_CODE or m.dtype not in _DTYPE_CODE:
         raise TypeError(f"fused_sgd_update: p/m must be float32 or bfloat16, "
                         f"got {p.dtype}/{m.dtype}")
-    if g.dtype != p.dtype:
-        raise TypeError(f"fused_sgd_update: g must have p's dtype {p.dtype}, "
-                        f"got {g.dtype}")
+    if g.dtype != p.dtype and not (p.dtype == torch.bfloat16
+                                   and g.dtype == torch.float32):
+        raise TypeError(f"fused_sgd_update: g must have p's dtype {p.dtype} "
+                        f"(or be float32 with a bfloat16 p), got {g.dtype}")
     if p.numel() == 0:
         raise ValueError("fused_sgd_update: empty tensors")
 
@@ -50,10 +52,11 @@ def fused_sgd_update_leaves(ps, ms, gs, *, eta: float, beta: float = 0.0,
     wd·p.
 
     ``ps``, ``ms``, ``gs``: equal-length sequences of CUDA tensors, each
-    (p, m, g) of one shape, float32 or bfloat16 p and m (g of p's type),
-    contiguous; any alignment. Every leaf is checked before anything
-    launches. One launch per (p type, m type, device) group and per
-    ``MAX_LEAVES`` leaves of it.
+    (p, m, g) of one shape, float32 or bfloat16 p and m,
+    contiguous; any alignment. g is of p's type, or float32 with a
+    bfloat16 p (a float32 accumulated gradient, read as it is). Every leaf
+    is checked before anything launches. One launch per (p type, m type,
+    g type, device) group and per ``MAX_LEAVES`` leaves of it.
     """
     if not len(ps) == len(ms) == len(gs):
         raise ValueError(f"fused_sgd_update: {len(ps)} p, {len(ms)} m, "
@@ -64,21 +67,21 @@ def fused_sgd_update_leaves(ps, ms, gs, *, eta: float, beta: float = 0.0,
         if p.device.type != "cuda":
             raise ValueError(f"fused_sgd_update: the kernel takes CUDA "
                              f"tensors, got {p.device}")
-        groups.setdefault((p.dtype, m.dtype, p.device), []).append(
+        groups.setdefault((p.dtype, m.dtype, g.dtype, p.device), []).append(
             (p.data_ptr(), m.data_ptr(), g.data_ptr(), p.numel()))
-    for (pt, mt, dev), rows in groups.items():
+    for (pt, mt, gt, dev), rows in groups.items():
         for i in range(0, len(rows), MAX_LEAVES):
-            _launch(rows[i:i + MAX_LEAVES], pt, mt, dev, eta, beta, wd)
+            _launch(rows[i:i + MAX_LEAVES], pt, mt, gt, dev, eta, beta, wd)
 
 
-def _launch(rows, p_dtype, m_dtype, device, eta, beta, wd):
+def _launch(rows, p_dtype, m_dtype, g_dtype, device, eta, beta, wd):
     table = (ctypes.c_int64 * (4 * len(rows)))(*(v for r in rows for v in r))
     lib = library()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         status = lib.repro_fused_sgd_update(
             table, len(rows), _DTYPE_CODE[p_dtype], _DTYPE_CODE[m_dtype],
-            float(eta), float(beta), float(wd), stream)
+            _DTYPE_CODE[g_dtype], float(eta), float(beta), float(wd), stream)
     fused_sgd_update.launches += 1
     check(status, "fused_sgd_update")
 

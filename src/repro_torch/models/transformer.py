@@ -15,6 +15,17 @@ Public API:
   prefill(params, cfg, tokens, cache)       -> (logits, cache)
   decode_step(params, cfg, tokens, cache)   -> (logits, cache)
 
+Training (``core/local_sgd.py``) keeps the parameters in the JAX
+package's grouped layout — ``head`` / ``blocks`` / ``tail``, each
+``blocks["sub<i>"]`` leaf stacked over the groups of ``block_pattern`` —
+so that a communication round sees the reference's leaves (one int8 scale
+per stacked leaf, the same per-leaf keys and bytes): ``to_grouped`` builds
+it, ``layer_views`` reads it back as this module's per-layer layout, each
+leaf a view of a group row, so gradients flow into the stacked leaves.
+``forward`` is differentiable, and under grad each layer is rematerialised
+in the backward (``torch.utils.checkpoint``), as the reference's
+``jax.checkpoint`` does.
+
 ``cache["pos"]`` is a (B,) integer tensor: each batch row's token count,
 so a batch of independent sequences (the serving engine's slots) decodes
 in one call. An attention layer's cache holds K/V, a Mamba2 layer's its
@@ -26,13 +37,15 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
-                                       init_mlp, rms_norm)
+                                       init_mlp, rms_norm, softcap)
+from repro_torch.utils.tree import tree_leaves, tree_map
 
 VOCAB_PAD = 256  # embedding rows padded as in the JAX package
 
@@ -51,6 +64,41 @@ def _plan(cfg: ArchConfig):
     n_groups = len(body) // p
     tail = body[n_groups * p:]
     return kinds[:n_head], n_groups, cfg.block_pattern, tail
+
+
+def layer_views(grouped, cfg: ArchConfig):
+    """The grouped layout (``head`` / ``blocks`` / ``tail``) → this module's
+    layout: one dict per layer under ``layers``, each leaf a view of its
+    group's row of a stacked ``blocks`` leaf (no copy)."""
+    _, n_groups, pattern, _ = _plan(cfg)
+    out = {k: v for k, v in grouped.items()
+           if k not in ("head", "blocks", "tail")}
+    layers = list(grouped["head"])
+    for g in range(n_groups):
+        for i in range(len(pattern)):
+            layers.append(tree_map(lambda a: a[g], grouped["blocks"][f"sub{i}"]))
+    layers += list(grouped["tail"])
+    if len(layers) != cfg.n_layers:
+        raise ValueError(f"{cfg.name}: the grouped tree holds {len(layers)} "
+                         f"layers, the config says {cfg.n_layers}")
+    out["layers"] = layers
+    return out
+
+
+def to_grouped(params, cfg: ArchConfig):
+    """This module's layout → the grouped one (the inverse of
+    ``layer_views``); the ``blocks`` leaves are new stacked tensors."""
+    head_kinds, n_groups, pattern, tail_kinds = _plan(cfg)
+    layers = params["layers"]
+    nh, p = len(head_kinds), len(pattern)
+    body = layers[nh:nh + n_groups * p]
+    out = {k: v for k, v in params.items() if k != "layers"}
+    out["head"] = list(layers[:nh])
+    out["blocks"] = ({f"sub{i}": tree_map(lambda *xs: torch.stack(xs),
+                                          *body[i::p]) for i in range(p)}
+                     if n_groups else {})
+    out["tail"] = list(layers[nh + n_groups * p:])
+    return out
 
 
 def check_supported(cfg: ArchConfig):
@@ -132,9 +180,17 @@ def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
 def _run_stack(params, cfg: ArchConfig, x, pos_q, caches=None,
                cache_pos=None, fresh=False):
     for i, kind in enumerate(cfg.layer_kinds()):
+        p = params["layers"][i]
+        if caches is None and torch.is_grad_enabled() and (
+                x.requires_grad or any(t.requires_grad
+                                       for t in tree_leaves(p))):
+            # remat: the backward recomputes the layer from its input, as
+            # the reference's jax.checkpoint does
+            x = checkpoint(_apply_layer, p, cfg, kind, x, pos_q,
+                           use_reentrant=False)
+            continue
         c = caches[i] if caches is not None else None
-        x = _apply_layer(params["layers"][i], cfg, kind, x, pos_q, c,
-                         cache_pos, fresh)
+        x = _apply_layer(p, cfg, kind, x, pos_q, c, cache_pos, fresh)
     return x
 
 
@@ -145,10 +201,14 @@ def _logits(params, cfg: ArchConfig, x):
     else:
         logits = x @ params["unembed"]
     if cfg.final_softcap is not None:
-        # cap * tanh(logits / cap), in place: the prefill logits of a
-        # 256k vocabulary are gigabytes
-        cap = cfg.final_softcap
-        logits.div_(cap).tanh_().mul_(cap)
+        if logits.requires_grad:
+            # out of place: tanh saves its output for the backward
+            logits = softcap(logits, cfg.final_softcap)
+        else:
+            # cap * tanh(logits / cap), in place: the prefill logits of a
+            # 256k vocabulary are gigabytes
+            cap = cfg.final_softcap
+            logits.div_(cap).tanh_().mul_(cap)
     vp = logits.shape[-1]
     if vp != cfg.vocab_size:  # mask pad columns out of softmax/argmax
         logits[..., cfg.vocab_size:] = -1e30

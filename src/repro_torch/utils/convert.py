@@ -13,11 +13,17 @@ import torch
 from repro_torch.utils.tree import tree_map
 
 
+def _tensor(a):
+    a = np.array(a, copy=True)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' bfloat16: same 16 bits
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree_of_numpy, device=None):
     """numpy-leaf tree -> the port's tensor tree, same structure and leaf
-    order, each leaf a fresh copy on ``device``."""
-    return tree_map(lambda a: torch.from_numpy(np.array(a, copy=True))
-                    .to(device), tree_of_numpy)
+    order, each leaf a fresh copy on ``device`` (bfloat16 included)."""
+    return tree_map(lambda a: _tensor(a).to(device), tree_of_numpy)
 
 
 def params_to_numpy(tree):
@@ -34,19 +40,27 @@ def transformer_params_from_jax(tree_of_numpy, cfg, device=None):
     layer in layer order under ``layers``. Top-level leaves (embed,
     final_norm, unembed) carry over as they are.
     """
-    from repro_torch.models.transformer import _plan
+    from repro_torch.models.transformer import layer_views
 
-    head_kinds, n_groups, pattern, tail_kinds = _plan(cfg)
-    t = params_from_jax(tree_of_numpy, device)
-    out = {k: v for k, v in t.items() if k not in ("head", "blocks", "tail")}
-    layers = list(t["head"])
-    for g in range(n_groups):
-        for i in range(len(pattern)):
-            layers.append(tree_map(lambda a: a[g].clone(),
-                                   t["blocks"][f"sub{i}"]))
-    layers += list(t["tail"])
-    if len(layers) != cfg.n_layers:
-        raise ValueError(f"{cfg.name}: JAX tree holds {len(layers)} layers, "
-                         f"config says {cfg.n_layers}")
-    out["layers"] = layers
+    views = layer_views(params_from_jax(tree_of_numpy, device), cfg)
+    views["layers"] = [tree_map(lambda a: a.clone(), layer)
+                       for layer in views["layers"]]
+    return views
+
+
+def train_state_from_jax(state_of_numpy, device=None):
+    """The JAX package's training state (``local_sgd.init_state`` /
+    ``StagewiseDriver`` state, as numpy) → the port's: ``params`` and
+    ``opt`` leaf for leaf, ``step`` as an int and ``comm`` when present.
+
+    The port trains in the reference's grouped layout
+    (``models/transformer.py::to_grouped``), so every leaf — the stacked
+    client replicas, the moments, the reducer's ``ref`` and residuals —
+    carries over as it is, with ``params_from_jax``.
+    """
+    out = {"params": params_from_jax(state_of_numpy["params"], device),
+           "opt": params_from_jax(state_of_numpy["opt"], device),
+           "step": int(np.asarray(state_of_numpy["step"]))}
+    if state_of_numpy.get("comm") is not None:
+        out["comm"] = params_from_jax(state_of_numpy["comm"], device)
     return out

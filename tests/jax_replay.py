@@ -15,6 +15,7 @@ import functools
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 
@@ -66,3 +67,15 @@ def bits_i32(bits_u32: np.ndarray) -> torch.Tensor:
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
 
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's tests on one intra-op torch thread (imported by the
+    transformer-training parity tests, whose small ops gain nothing from
+    more): the tier-1 run's test workers share the machine's cores, and a
+    worker's thread team waiting on descheduled threads stalls."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

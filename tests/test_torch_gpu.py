@@ -900,3 +900,120 @@ def test_cnn_simulator_runs_through_the_kernels(f32_convs):
     assert counts["fused_sgd_update"] == last.iteration
     assert counts["quantize_kernel"] == counts["dequant_mean_kernel"] \
         == 38 * last.round
+
+
+# ---------------------------------------------------------------------------
+# Transformer training: the flash Function's backward, the SSD guard, the
+# update of one client's bf16 rows
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,B,S,H,KV,D,window,cap", [
+    (torch.bfloat16, 2, 256, 8, 2, 128, None, None),
+    (torch.bfloat16, 1, 300, 4, 4, 64, 64, 30.0),
+    (torch.float32, 1, 200, 4, 2, 64, 64, 30.0),
+])
+def test_flash_gradients_equal_the_plain_route(cuda, dtype, B, S, H, KV, D,
+                                               window, cap):
+    """The kernel route's output has a grad_fn and its dq, dk, dv equal
+    autograd through the plain version bit for bit (both differentiate
+    the same recomputed plain attention)."""
+    from repro_torch.kernels.flash_attention.ops import (flash_attention,
+                                                         plain_attention)
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q = torch.randn((B, S, H, D), generator=g, device=cuda)
+    q = (q * (cap / 4 if cap else 1.0)).to(dtype)
+    k, v = (torch.randn((B, S, KV, D), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    dout = torch.randn((B, S, H, D), generator=g, device=cuda).to(dtype)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = FA.flash_attention.launches
+    out = flash_attention(*ins, window=window, softcap=cap)
+    assert out.grad_fn is not None
+    assert FA.flash_attention.launches == before + 1
+    got = torch.autograd.grad(out, ins, dout)
+    plain_ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    ref = plain_attention(*plain_ins, True, window, cap, None)
+    want = torch.autograd.grad(ref, plain_ins, dout)
+    torch.cuda.synchronize()
+    assert FA.flash_attention.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.dtype == dtype and torch.equal(a, b)
+    if dtype == torch.bfloat16:
+        _, elem, row = bf16_mismatch(out.detach(), attention_ref(
+            q, k, v, window=window, softcap=cap))
+        assert elem <= 1.0 and row <= 1.0
+    else:
+        torch.testing.assert_close(out.detach(), ref.detach(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+def test_ssd_refuses_grad_on_the_card(cuda):
+    from repro_torch.kernels.ssd.ops import ssd
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    x = torch.randn((1, 64, 2, 64), generator=g, device=cuda)
+    dt = torch.rand((1, 64, 2), generator=g, device=cuda)
+    A = -torch.rand((2,), generator=g, device=cuda)
+    Bm, Cm = (torch.randn((1, 64, 1, 16), generator=g, device=cuda)
+              for _ in range(2))
+    before = SSD.ssd.launches
+    with pytest.raises(RuntimeError, match="no backward"):
+        ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=64)
+    assert SSD.ssd.launches == before
+    with torch.no_grad():
+        ssd(x, dt, A, Bm, Cm, chunk=64)
+    assert SSD.ssd.launches == before + 1
+
+
+def test_update_of_one_clients_bf16_rows_matches_plain(cuda):
+    """The local step's update: one launch on client 1's rows (views) of
+    stacked bf16 leaves with float32 moments, bit-equal to the plain
+    version; client 0's rows untouched."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    shapes = [(2, 3, 96, 40), (2, 64), (2, 5)]
+    P = [torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+         for s in shapes]
+    M = [torch.randn(s, generator=g, device=cuda) for s in shapes]
+    G = [torch.randn(s[1:], generator=g, device=cuda).to(torch.bfloat16)
+         for s in shapes]
+    P0, M0 = [p.clone() for p in P], [m.clone() for m in M]
+    want_p, want_m = tree_sgd_update_ref([p[1] for p in P],
+                                         [m[1] for m in M], G, eta=0.05,
+                                         beta=0.9, wd=1e-4)
+    before = fused_sgd_update.launches
+    tree_sgd_update_([p[1] for p in P], [m[1] for m in M], G, eta=0.05,
+                     beta=0.9, wd=1e-4)
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 1
+    for p, m, p0, m0, wp, wm in zip(P, M, P0, M0, want_p, want_m):
+        assert torch.equal(p[0], p0[0]) and torch.equal(m[0], m0[0])
+        # float32 math rounded once to bf16, in the plain version's order
+        assert torch.equal(p[1], wp) and torch.equal(m[1], wm)
+
+
+@pytest.mark.parametrize("m_dtype", [torch.float32, torch.bfloat16])
+def test_update_of_bf16_rows_with_float32_grads_matches_plain(cuda, m_dtype):
+    """The microbatch step's update: bf16 parameters with a float32
+    (accumulated) gradient, read as float32 by one launch, bit-equal to
+    the plain version; a leaf at an odd offset takes the scalar loop."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    shapes = [(2, 3, 96, 40), (2, 64), (2, 5)]
+    P = [torch.randn(s, generator=g, device=cuda).to(torch.bfloat16)
+         for s in shapes]
+    M = [torch.randn(s, generator=g, device=cuda).to(m_dtype)
+         for s in shapes]
+    G = [torch.randn(s[1:], generator=g, device=cuda) * 1e-2
+         for s in shapes]
+    G[1] = torch.empty(65, device=cuda)[1:].copy_(G[1])
+    assert G[1].data_ptr() % 16
+    want_p, want_m = tree_sgd_update_ref([p[0] for p in P],
+                                         [m[0] for m in M], G, eta=0.05,
+                                         beta=0.9, wd=1e-4)
+    before = fused_sgd_update.launches
+    tree_sgd_update_([p[0] for p in P], [m[0] for m in M], G, eta=0.05,
+                     beta=0.9, wd=1e-4)
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 1
+    for p, m, wp, wm in zip(P, M, want_p, want_m):
+        assert torch.equal(p[0], wp) and torch.equal(m[0], wm)

@@ -4,7 +4,7 @@ Three checks: no ``jax`` / ``repro`` import anywhere in the port's
 sources (or in ``chip_smoke.py``); a fresh interpreter that imports every
 port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
 port's entry points (``core.simulate.run``, ``runtime.run``, the CNN
-initializers) refuse to run without CUDA unless asked for the CPU.
+initializers, the training builders and launcher) refuse to run without CUDA unless asked for the CPU.
 """
 import ast
 import os
@@ -58,6 +58,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.kernels.quantize.kernel" in mods
     assert "repro_torch.models.cnn" in mods
     assert "repro_torch.engine.topology" in mods
+    for m in ("optim.sgd", "checkpoint.ckpt", "core.local_sgd",
+              "core.stl_sgd", "core.baselines", "launch.train"):
+        assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -103,4 +106,15 @@ def test_run_without_device_needs_cuda():
             init(0, width=4)
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate.resolve_device("cuda")
+    from repro_torch.configs import get_arch
+    from repro_torch.core import local_sgd
+    from repro_torch.launch import train
+
+    cfg = get_arch("qwen3-14b", smoke=True)
+    for call in (lambda: local_sgd.build_train_steps(cfg),
+                 lambda: local_sgd.init_state(0, cfg, 2),
+                 lambda: next(train.synthetic_batches(cfg, 2, 1, 8)),
+                 lambda: train.main(["--arch", "qwen3-14b", "--smoke"])):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
     assert simulate.resolve_device("cpu").type == "cpu"
