@@ -228,11 +228,41 @@ failure propagates, so the script exits non-zero and prints no result.
      stage. Each cut is logged. Then the three training kernels at the
      (2, n) blocks 16b's int8 rounds hand them (each leaf size of qwen3
      SMOKE), as in phase 3.
- 17. One ``{"kernels": [...]}`` summary line (all five kernels; launches
-     summed over each path's measured run: phases 4 and 11-15's, 16b's
-     three card runs and 16c's main run, not the comparison launches, the
-     profiles or 16c's streaming check; the flash row carries phase 16a
-     as ``train``), then the last line ``{"ok": true, "device": {...}}``.
+ 17. Mamba2 training, the launchers' flags and serving from a checkpoint.
+     (a) The SSD autograd Function on the card at mamba2-2.7b's training
+     layer (2, 1,024, 80, 64), N = 128, chunk 256, and at 17b's layer
+     (2, 64, 8, 64), N = 32, chunk 64, float32 as ``apply_mamba2`` hands
+     them over: the kernel route's y and final state have a grad_fn and
+     are held to the plain version as in phase 8; dx, ddt, dA, dB, dC for
+     one fixed dL/dy equal autograd through the plain version bit for
+     bit; timed: the kernel's forward and the plain backward against the
+     backward's bound (``ssd_bwd_work``). (b) mamba2-2.7b SMOKE as 16b
+     runs qwen3 SMOKE (dense, int8, hier; the same limits; the SSD
+     forward twice a layer a client a step), its control with the SSD
+     output detached. (c) mamba2-2.7b at full width and depth (64 layers,
+     bf16, seed 0) through ``launch/train.main`` with ``--profile
+     --profile-dir --profile-calls 2 --trace --ckpt-out``: 2 clients, 2
+     sequences of 1,024 tokens a client a step, stl_sc eta1 0.05, T1 8, k1
+     4, 2 stages cut at 16 local steps: the loss finite and falling, the
+     launches (SSD 256 and fused update 2 a local step), the ledger, ms a
+     step against its bound (GEMMs at 989 TFLOP/s, the scan at a third of
+     it), peak memory, the skew table, device ms a step by kind over the
+     profiler's 2 traced steps (GEMMs, SSD forward, the plain SSD
+     backward, fused update, log-softmax) and the plain backward's share;
+     the trace, its .jsonl and the torch.profiler file checked; one
+     client's fused update at the trained state as in 16c. (d) that
+     checkpoint behind ``launch/serve.main(["--ckpt", ..., "--trace", ...,
+     "--profile"])``: 4 requests, the restored params equal to the trained
+     consensus (per-leaf sums), 64 SSD launches a multi-token prefill,
+     tokens held to ``greedy_decode`` on the restored params. Then the
+     training kernels at the (2, n) blocks 17b's int8 rounds hand them.
+ 18. One ``{"kernels": [...]}`` summary line (all five kernels; launches
+     summed over each path's measured run: phases 4 and 11-15's, the
+     three card runs of 16b and 17b, the main runs of 16c and 17c and
+     17d's serving run, not
+     the comparison launches, the profiles or 16c's streaming check; the
+     flash row carries phase 16a as ``train``, the SSD row phase 17a),
+     then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1012,6 +1042,17 @@ def ssd_layer_kernels_ms(torch) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
+def off_by(pairs, tol):
+    """(max |d|, max |d| / (tol + tol |ref|)) over (got, ref) pairs: the JAX
+    package's tolerance rule for the SSD scan (tests/test_ssd_kernel.py)."""
+    err, worst = 0.0, 0.0
+    for got, ref in pairs:
+        d = (got.float() - ref.float()).abs()
+        err = max(err, float(d.max()))
+        worst = max(worst, float((d / (tol + tol * ref.float().abs())).max()))
+    return err, worst
+
+
 def check_ssd(torch, passes_ms: dict, labels=None):
     """Phase 8: the SSD kernel against its plain version, and its times;
     ``passes_ms`` is ``ssd_layer_kernels_ms``'s profile of the layer call;
@@ -1048,16 +1089,6 @@ def check_ssd(torch, passes_ms: dict, labels=None):
         "layer_init": (1, 4096, 80, 64, 1, 128, 256, f32, True),
         "init_2chunk": (2, 300, 8, 64, 1, 128, 256, f32, True),
     }
-
-    def off_by(pairs, tol):
-        """(max |d|, max |d| / (tol + tol |ref|)) over (got, ref) pairs:
-        the JAX package's tolerance rule (tests/test_ssd_kernel.py)."""
-        err, worst = 0.0, 0.0
-        for got, ref in pairs:
-            d = (got.float() - ref).abs()
-            err = max(err, float(d.max()))
-            worst = max(worst, float((d / (tol + tol * ref.abs())).max()))
-        return err, worst
 
     rows = {}
     for label, (b, S, H, P, G, N, chunk, dt_, init) in cases.items():
@@ -1187,7 +1218,6 @@ def serve_full_width(torch, arch: str):
 
     from repro_torch import kernels
     from repro_torch.configs import get_arch
-    from repro_torch.core.serving import greedy_decode
     from repro_torch.models import transformer as TF
     from repro_torch.obs.metrics import MetricsRegistry
     from repro_torch.obs.series import SeriesRegistry
@@ -1268,12 +1298,37 @@ def serve_full_width(torch, arch: str):
         log(f"[serve] one-token request {rec.id} in slot {rec.slot}, used "
             f"before by requests {used}")
 
+    compared, total = hold_to_greedy(torch, arch, params, cfg, reqs,
+                                     report.records, sched.max_seq_len)
+    log(f"[serve] tokens held to greedy_decode: {compared} of {total}")
+    del eng
+    torch.cuda.empty_cache()
+    step = time_serve_steps(torch, cfg, params, sched, long_prompt)
+    return {"arch": arch, "wall_s": wall, "tok_s": tokens / wall,
+            "tokens": tokens, "n_prefills": report.n_prefills,
+            "n_steps": report.n_steps, "peak_gb": peak / 1e9,
+            "makespan_s": report.makespan_s,
+            "modeled_tok_s": report.modeled_tok_s,
+            "tokens_compared": compared, "tokens_total": total,
+            "launches": counts[kname], **step}
+
+
+def hold_to_greedy(torch, arch, params, cfg, reqs, records, max_seq_len):
+    """Each request's served tokens against ``greedy_decode`` on the same
+    params: the first token equal, each later one equal until the first
+    whose top-2 logit gap is under ``MARGIN_TOL`` (a near tie the batched
+    and the single-row products may break apart). Returns (tokens
+    compared, tokens served)."""
+    from repro_torch.core.serving import greedy_decode
+    from repro_torch.utils.tree import tree_leaves
+
+    dev = tree_leaves(params)[0].device
     compared = total = 0
-    for r, rec in zip(reqs, report.records):
+    for r, rec in zip(reqs, records):
         prompt = torch.as_tensor(r.prompt[None], dtype=torch.long,
                                  device=dev)
         ref, margin = greedy_decode(params, cfg, prompt, r.n_out,
-                                    sched.max_seq_len)
+                                    max_seq_len)
         ref, margin = ref[0].tolist(), margin[0].tolist()
         if rec.tokens[0] != ref[0]:
             raise AssertionError(f"serve {arch}: request {r.id} first token "
@@ -1293,17 +1348,7 @@ def serve_full_width(torch, arch: str):
         log(f"[serve] request {r.id}: prompt {r.prompt_len}, slot "
             f"{rec.slot}, {k}/{r.n_out} tokens compared, equal to "
             f"greedy_decode (min margin {min(margin):.3f})")
-    log(f"[serve] tokens held to greedy_decode: {compared} of {total}")
-    del eng
-    torch.cuda.empty_cache()
-    step = time_serve_steps(torch, cfg, params, sched, long_prompt)
-    return {"arch": arch, "wall_s": wall, "tok_s": tokens / wall,
-            "tokens": tokens, "n_prefills": report.n_prefills,
-            "n_steps": report.n_steps, "peak_gb": peak / 1e9,
-            "makespan_s": report.makespan_s,
-            "modeled_tok_s": report.modeled_tok_s,
-            "tokens_compared": compared, "tokens_total": total,
-            "launches": counts[kname], **step}
+    return compared, total
 
 
 def time_serve_steps(torch, cfg, params, sched, long_prompt):
@@ -2517,43 +2562,65 @@ def lm_train(torch, cfg, dev, state, tcfg, *, clients, batch, seq,
                                                  max_iters=max_iters)
 
 
+def update_launches(ps, ms, gs) -> int:
+    """The launches one ``tree_sgd_update_`` of these leaves makes: one a
+    (p, m, g type) group and ``MAX_LEAVES`` leaves of it."""
+    from collections import Counter
+
+    from repro_torch.kernels.fused_update.kernel import MAX_LEAVES
+
+    groups = Counter((p.dtype, m.dtype, g.dtype)
+                     for p, m, g in zip(ps, ms, gs))
+    return sum(-(-n // MAX_LEAVES) for n in groups.values())
+
+
 def lm_launches(cfg, ds, clients: int, int8_messages: int) -> dict:
-    """The training path's launches: the flash forward twice a layer a
-    client a local step (the forward and its remat recompute), one fused
-    update a client a local step, one quantize and one dequant_mean a leaf
-    a round for each int8 message of a leaf (``int8_messages``)."""
+    """The training path's launches: the flash forward twice an attention
+    layer a client a local step (the forward and its remat recompute), the
+    SSD forward twice a Mamba2 layer a client a local step, the fused
+    update's launches for a client's tree (one, or one a type group: a
+    bf16 mamba2 keeps A_log, D and dt_bias in float32) a client a local
+    step, one quantize and one dequant_mean a leaf a round for each int8
+    message of a leaf (``int8_messages``)."""
     from repro_torch.utils.tree import tree_leaves
 
-    n_leaves = len(tree_leaves(ds.state["params"]))
-    return {"flash_attention": 2 * cfg.n_layers * clients * ds.iters_total,
-            "fused_sgd_update": clients * ds.iters_total,
+    ps = [t[0] for t in tree_leaves(ds.state["params"])]
+    ms = [t[0] for t in tree_leaves(ds.state["opt"]["mu"])]
+    n_leaves = len(ps)
+    kinds = cfg.layer_kinds()
+    per_layer = 2 * clients * ds.iters_total
+    return {"flash_attention": per_layer * sum(k in "GL" for k in kinds),
+            "ssd": per_layer * kinds.count("M"),
+            "fused_sgd_update": clients * ds.iters_total
+            * update_launches(ps, ms, ps),
             "quantize_kernel": int8_messages * n_leaves * ds.rounds_total,
             "dequant_mean_kernel": int8_messages * n_leaves * ds.rounds_total}
 
 
-def lm_path_shapes() -> dict:
-    """The blocks 16b's int8 rounds hand quantize and dequant_mean: each
-    leaf of qwen3-14b SMOKE as (2, n) — two clients on the int8 Star, the
-    two pod means on the two-level round's inter hop (its intra hop is
-    dense, so no (1, n) pod block is quantized)."""
+def lm_path_shapes(arch: str = "qwen3-14b", label: str = "lm") -> dict:
+    """The blocks the int8 rounds of 16b (17b for mamba2) hand quantize and
+    dequant_mean: each leaf of ``arch``'s SMOKE config as (2, n) — two
+    clients on the int8 Star, the two pod means on the two-level round's
+    inter hop (its intra hop is dense, so no (1, n) pod block is
+    quantized)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer
     from repro_torch.utils.tree import tree_leaves
 
-    cfg = get_arch("qwen3-14b", smoke=True).replace(dtype="float32")
-    p = transformer.to_grouped(
-        transformer.init_params(cfg, seed=0, device="cpu"), cfg)
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    p = transformer.to_grouped(transformer.init_params_shape(cfg), cfg)
     sizes = sorted({t.numel() for t in tree_leaves(p)})
-    return {f"lm smoke leaf {n}": (LM_CHECK["clients"], n) for n in sizes}
+    return {f"{label} smoke leaf {n}": (LM_CHECK["clients"], n)
+            for n in sizes}
 
 
 def check_lm_update(torch, cfg, state, q) -> dict:
-    """Phase 16c: the fused update at the path's own shapes. Client 0's
-    gradient at the trained state (``lm_loss`` on one of its batches),
-    then one ``tree_sgd_update_`` on client 0's row views of the stacked
-    bf16 leaves and their float32 moments — the launch each client makes
-    each local step, every leaf in one launch — against the plain version
-    on clones of the same rows, bit for bit: with the gradient in bf16
+    """Phases 16c and 17c: the fused update at the path's own shapes.
+    Client 0's gradient at the trained state (``lm_loss`` on one of its
+    batches), then one ``tree_sgd_update_`` on client 0's row views of the
+    stacked bf16 leaves and their float32 moments — the launch each client
+    makes each local step, every leaf in one launch a type group — against
+    the plain version on clones of the same rows, bit for bit: with the gradient in bf16
     (the path's) and in float32 (the microbatch step's). The path's eta,
     momentum 0.9 and weight decay 1e-4, so every term runs. The launch's
     device time beside its bound (bytes)."""
@@ -2588,28 +2655,38 @@ def check_lm_update(torch, cfg, state, q) -> dict:
         tree_sgd_update_(rows_p, rows_m, grads, eta=eta, beta=beta, wd=wd)
         torch.cuda.synchronize()
         launched = fused_sgd_update.launches - n0
+        want = update_launches(rows_p, rows_m, grads)
         bad = []
-        for i, (p, m, g) in enumerate(zip(p0, m0, grads)):
-            wp, wm = sgd_update_ref(p, m, g, eta=eta, beta=beta, wd=wd)
-            if not (torch.equal(rows_p[i], wp) and torch.equal(rows_m[i], wm)):
-                bad.append(i)
-            del wp, wm
+        for i, leaf in enumerate(zip(p0, m0, grads, rows_p, rows_m)):
+            # the plain version is elementwise: run it on pieces of the
+            # flattened leaf, so that its float32 temporaries stay small
+            # beside a 1.7 G-element stacked leaf
+            pieces = zip(*(t.reshape(-1).split(1 << 26) for t in leaf))
+            for p, m, g, got_p, got_m in pieces:
+                wp, wm = sgd_update_ref(p, m, g, eta=eta, beta=beta, wd=wd)
+                if not (torch.equal(got_p, wp) and torch.equal(got_m, wm)):
+                    bad.append(i)
+                    break
         del p0, m0
         torch.cuda.empty_cache()
         ms = device_ms(torch, lambda: tree_sgd_update_(
             rows_p, rows_m, grads, eta=1e-9, beta=beta), batch=1, reps=5)
-        g_bytes = grads[0].element_size()
-        bms, by = bound_ms(n * (2 + 4 + g_bytes + 2 + 4), 4 * n)
-        log(f"[lm-update] client 0's {len(rows_p)} bf16 leaves ({n} "
-            f"elements) with float32 moments, {label}: {launched} launch, "
+        # p and m read and written, g read, each in its own type
+        n_bytes = sum(p.numel() * (2 * p.element_size() + 2 * m.element_size()
+                                   + g.element_size())
+                      for p, m, g in zip(rows_p, rows_m, grads))
+        bms, by = bound_ms(n_bytes, 4 * n)
+        log(f"[lm-update] {cfg.name}: client 0's {len(rows_p)} leaves ({n} "
+            f"elements; bf16, float32 moments), {label}: {launched} "
+            f"launch(es), "
             f"{'bit-equal to the plain version' if not bad else f'leaves {bad} DIFFER'}"
             f"; device {ms:.3f} ms, bound {bms:.3f} ms ({by})")
-        if launched != 1 or bad:
+        if launched != want or bad:
             raise AssertionError(f"fused update of the LM rows ({label}): "
                                  f"{launched} launches, leaves {bad} off "
                                  f"the plain version")
         out[label] = {"ms": ms, "bound_ms": bms, "bound_by": by,
-                      "bit_equal": True}
+                      "bit_equal": True, "launches": launched}
     del grads
     torch.cuda.empty_cache()
     return out
@@ -2645,15 +2722,16 @@ def lm_state_diff(torch, start, a, b) -> dict:
     return out
 
 
-def train_reference_check(torch) -> dict:
-    """Phase 16b: qwen3-14b SMOKE (float32) trained on the card against
-    the CPU from the same state, on the same batches and sync draws
-    (``HostKey``), under dense Star, int8 Star and the two-level round
-    (2 pods, dense + int8): stage results and ledgers equal, mean losses
-    and each leaf of the final state (the parameters' updates, the
-    moments) within ``LM_CHECK_RUNS``' tolerances, the launches of the
-    path. Then a control: the dense run on the card again with the flash
-    output detached from the graph (the fault the autograd Function
+def train_reference_check(torch, arch: str = "qwen3-14b") -> dict:
+    """Phase 16b (17b for mamba2-2.7b): ``arch``'s SMOKE config (float32)
+    trained on the card against the CPU from the same state, on the same
+    batches and sync draws (``HostKey``), under dense Star, int8 Star and
+    the two-level round (2 pods, dense + int8): stage results and ledgers
+    equal, mean losses and each leaf of the final state (the parameters'
+    updates, the moments) within ``LM_CHECK_RUNS``' tolerances, the
+    launches of the path. Then a control: the dense run on the card again
+    with the output of the layer's autograd Function — flash attention's,
+    or the SSD scan's — detached from the graph (the fault such a Function
     repairs), which the state check must refuse."""
     from unittest import mock
 
@@ -2662,10 +2740,11 @@ def train_reference_check(torch) -> dict:
     from repro_torch.configs.base import TrainConfig
     from repro_torch.core import local_sgd as LS
     from repro_torch.kernels.flash_attention import ops as FO
+    from repro_torch.kernels.ssd import ops as SO
     from repro_torch.utils.rng import TorchKey
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_arch("qwen3-14b", smoke=True).replace(dtype="float32")
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
     c = LM_CHECK
     base = LS.init_state(0, cfg, c["clients"], device="cpu")
 
@@ -2695,7 +2774,7 @@ def train_reference_check(torch) -> dict:
         rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
                   for a, b in zip(card.results, cpu.results))
         diff = lm_state_diff(torch, base, card.state, cpu.state)
-        log(f"[lm-check] {label}: stages {shape}, mean losses card "
+        log(f"[lm-check] {cfg.name} {label}: stages {shape}, mean losses card "
             f"{[round(r.mean_loss, 6) for r in card.results]} vs CPU "
             f"{[round(r.mean_loss, 6) for r in cpu.results]}, max rel diff "
             f"{rel:.3g} (tol {tol}); final state, card against CPU: "
@@ -2723,25 +2802,33 @@ def train_reference_check(torch) -> dict:
         del card
     torch.cuda.empty_cache()
 
-    # the control: the parent's fault, a flash output without a grad_fn
+    # the control: a layer's Function output without a grad_fn (the fault
+    # the autograd Functions repair)
     kw, tol, state_tol = LM_CHECK_RUNS["dense star"]
-    apply = FO.FlashAttention.apply
-    with mock.patch.object(FO.FlashAttention, "apply",
-                           lambda *a: apply(*a).detach()):
+    if "M" in cfg.layer_kinds():
+        fn, what = SO.SSD, "ssd"
+        apply = fn.apply
+        detached = lambda *a: tuple(t.detach() for t in apply(*a))
+    else:
+        fn, what = FO.FlashAttention, "flash"
+        apply = fn.apply
+        detached = lambda *a: apply(*a).detach()
+    with mock.patch.object(fn, "apply", detached):
         card = run("cuda:0", tcfg_of(kw))
     torch.cuda.synchronize()
     rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
               for a, b in zip(card.results, cpu_dense.results))
     diff = lm_state_diff(torch, base, card.state, cpu_dense.state)
-    log(f"[lm-check] control, flash output detached (dense star): mean "
+    log(f"[lm-check] {cfg.name} control, {what} output detached (dense "
+        f"star): mean "
         f"losses max rel diff {rel:.3g} (tol {tol}), final state: updates "
         f"{diff['params']:.3g} ({diff['params_leaf']}), moments "
         f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
         f"{state_tol}): refused")
     if diff["params"] <= state_tol and diff["opt"] <= state_tol:
-        raise AssertionError(f"lm control: a detached flash output passes "
+        raise AssertionError(f"lm control: a detached {what} output passes "
                              f"the state check: {diff}")
-    readings["control flash detached"] = dict(loss_rel=rel, **diff)
+    readings[f"control {what} detached"] = dict(loss_rel=rel, **diff)
     del card
     torch.cuda.empty_cache()
     return {"launches": launches, "readings": readings}
@@ -2783,44 +2870,63 @@ def profile_lm(torch, cfg, dev, state, tcfg, q) -> dict:
         state = sync(state)
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
+    out = {"steps": n, "ms_per_step": wall * 1e3 / n}
+    kinds = device_ms_by_kind(
+        torch, prof, n, {"gemm": GEMM_KERNELS,
+                         "flash_forward": ("flash_fwd",),
+                         "fused_update": ("fused_sgd_update",),
+                         "loss_log_softmax": ("LogSoftMax",)},
+        {"attention_backward": "flash_attention.backward"})
+    if kinds is None:
+        log(f"[lm-profile] {wall * 1e3 / n:.2f} ms a local step; device "
+            f"time not measured (no CUDA events traced)")
+        return out
+    union = busy_union_us(torch, prof) / 1e3
+    out.update(busy_union_pct=100 * union / (wall * 1e3), **kinds)
+    log(f"[lm-profile] {n} local steps and a round in {wall * 1e3:.1f} ms: "
+        f"{wall * 1e3 / n:.2f} ms a step, {out['kernels_per_step']:.0f} "
+        f"kernels a step, a kernel running {out['busy_union_pct']:.1f}% of "
+        f"the wall; device ms a step: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    out["by_kind_ms_per_step"].items())
+        + " (the attention backward's products are among the GEMMs too)")
+    for line in out.pop("top"):
+        log(f"[lm-profile]   {line}")
+    return out
+
+
+# cuBLAS's GEMM kernels, by the names they carry on the H100
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def device_ms_by_kind(torch, prof, n: int, kinds: dict, ranges: dict):
+    """A torch.profiler session's device time a step, over ``n`` steps:
+    for each kind, the kernels whose names hold one of its patterns; for
+    each ``ranges`` entry, the kernels launched inside that
+    record_function range (its device time, read on the host-side range).
+    With the kernels a step, their device ms a step and the 8 largest
+    kernels as log lines (``top``); None if no device event was traced."""
     avg = prof.key_averages()
     cuda = torch.autograd.DeviceType.CUDA
     # a record_function range shows on the device too, as a span over its
     # kernels: keep it out of the kernels
     kern = [e for e in avg if e.device_type == cuda
             and not getattr(e, "is_user_annotation", False)]
-    out = {"steps": n, "ms_per_step": wall * 1e3 / n}
     if not kern:
-        log(f"[lm-profile] {wall * 1e3 / n:.2f} ms a local step; device "
-            f"time not measured (no CUDA events traced)")
-        return out
-    kinds = {"gemm": ("gemm", "nvjet", "xmma", "cutlass"),
-             "flash_forward": ("flash_fwd",),
-             "fused_update": ("fused_sgd_update",),
-             "loss_log_softmax": ("LogSoftMax",)}
+        return None
     ms = {k: sum(e.self_device_time_total for e in kern
                  if any(p in e.key for p in pats)) / 1e3 / n
           for k, pats in kinds.items()}
-    # the host-side range: the device time of the kernels launched in it
-    ms["attention_backward"] = sum(
-        e.device_time_total for e in avg
-        if e.key == "flash_attention.backward" and e.device_type != cuda
-    ) / 1e3 / n
-    busy = sum(e.self_device_time_total for e in kern) / 1e3
-    union = busy_union_us(torch, prof) / 1e3
-    out.update(kernels_per_step=sum(e.count for e in kern) / n,
-               busy_union_pct=100 * union / (wall * 1e3),
-               kernel_ms_per_step=busy / n, by_kind_ms_per_step=ms)
-    log(f"[lm-profile] {n} local steps and a round in {wall * 1e3:.1f} ms: "
-        f"{wall * 1e3 / n:.2f} ms a step, {out['kernels_per_step']:.0f} "
-        f"kernels a step, a kernel running {out['busy_union_pct']:.1f}% of "
-        f"the wall; device ms a step: "
-        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
-        + " (the attention backward's products are among the GEMMs too)")
-    for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]:
-        log(f"[lm-profile]   device {e.self_device_time_total / 1e3 / n:8.3f}"
-            f" ms a step x{e.count / n:6.1f}  {e.key[:90]}")
-    return out
+    for k, name in ranges.items():
+        ms[k] = sum(e.device_time_total for e in avg
+                    if e.key == name and e.device_type != cuda) / 1e3 / n
+    top = [f"device {e.self_device_time_total / 1e3 / n:8.3f} ms a step "
+           f"x{e.count / n:6.1f}  {e.key[:90]}"
+           for e in sorted(kern, key=lambda e: -e.self_device_time_total)[:8]]
+    return {"kernels_per_step": sum(e.count for e in kern) / n,
+            "kernel_ms_per_step": sum(e.self_device_time_total
+                                      for e in kern) / 1e3 / n,
+            "by_kind_ms_per_step": ms, "top": top}
 
 
 def run_qwen3_training(torch, dev="cuda:0") -> dict:
@@ -2930,6 +3036,365 @@ def run_qwen3_training(torch, dev="cuda:0") -> dict:
     out["streaming_bit_equal"] = True
     del finals, ds
     torch.cuda.empty_cache()
+    return out
+
+
+
+# phase 17: Mamba2 training. 17a's SSD cases, float32 as apply_mamba2 hands
+# the scan its inputs: mamba2-2.7b's training layer (2 sequences of 1,024
+# tokens, 80 heads of 64, N = 128, chunk 256) and 17b's (mamba2-2.7b SMOKE:
+# 2 sequences of 64 tokens, 8 heads of 64, N = 32, chunk 64)
+SSD_TRAIN_CASES = {"mamba2 train": (2, 1024, 80, 64, 1, 128, 256),
+                   "mamba2 smoke": (2, 64, 8, 64, 1, 32, 64)}
+# 17c: mamba2-2.7b at full width and depth through launch/train.main: 2
+# clients, 2 sequences of 1,024 tokens a client a step, stl_sc T1 8, k1 4,
+# 2 stages cut at 16 local steps (8 + 8, 3 rounds); the profiler traces 2
+# train steps after a warm-up one (a whole run's trace would be gigabytes)
+MAMBA2_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8, "k1": 4.0,
+                "stages": 2, "steps": 16, "eta1": 0.05, "profile_calls": 2}
+# 17d: the checkpoint 17c wrote, behind launch/serve.main
+SERVE_CKPT = {"requests": 4, "slots": 4, "prompt_len": 300, "gen": 8,
+              "max_seq_len": 2048}
+
+
+def ssd_bwd_work(b, S, H, P, G, N, chunk, init=False):
+    """(bytes, FLOPs) the SSD scan's vector-Jacobian product must move and
+    compute at this shape, in float32: x, dt, A, B, C and dL/dy read once
+    and the gradients of x, dt, A, B, C written once (with ``init`` the
+    initial state read and its gradient written); twice the forward's
+    FLOPs (``ssd_work``), since each multiply-add of the forward has one in
+    the gradient of each of its two operands."""
+    _, f = ssd_work(b, S, H, P, G, N, chunk, 4, init)
+    elems = 2 * b * S * H * P + b * S * H + H + 2 * b * S * G * N
+    n_bytes = 4 * (2 * elems + b * S * H * P + (2 * b * H * P * N if init
+                                                else 0))
+    return n_bytes, 2.0 * f
+
+
+def check_ssd_grad(torch) -> dict:
+    """Phase 17a: the SSD Function on the card at the training shapes. The
+    kernel route's y and final state have a grad_fn and are held to the
+    plain version at phase 8's tolerance; for one fixed dL/dy, dx, ddt,
+    dA, dB and dC equal autograd through the plain version bit for bit.
+    Times: the kernel's forward and the plain backward (the Function's
+    recompute and vector-Jacobian product) against the backward's bound
+    (``ssd_bwd_work``, phase 8's scheme of three bf16 tensor-core products
+    per float32 product, or bytes)."""
+    from repro_torch.kernels.ssd import kernel as SK
+    from repro_torch.kernels.ssd.ops import plain_ssd, ssd
+
+    g = torch.Generator(device="cuda:0").manual_seed(5)
+    rows = {}
+    for label, (b, S, H, P, G, N, chunk) in SSD_TRAIN_CASES.items():
+        args = ssd_inputs(torch, g, b, S, H, P, G, N, torch.float32)
+        gy = torch.randn(args[0].shape, generator=g, device="cuda:0")
+        ins = [t.clone().requires_grad_() for t in args]
+        n0 = SK.ssd.launches
+        y, st = ssd(*ins, chunk=chunk)
+        grads = torch.autograd.grad(y, ins, gy, retain_graph=True)
+        pins = [t.clone().requires_grad_() for t in args]
+        yp, sp = plain_ssd(*pins, chunk)
+        pgrads = torch.autograd.grad(yp, pins, gy)
+        torch.cuda.synchronize()
+        if y.grad_fn is None or SK.ssd.launches != n0 + 1:
+            raise AssertionError(f"ssd {label}: the kernel route gave no "
+                                 f"grad_fn or launched "
+                                 f"{SK.ssd.launches - n0} times")
+        equal = [torch.equal(a, w) for a, w in zip(grads, pgrads)]
+        if not all(equal):
+            raise AssertionError(f"ssd {label}: dx/ddt/dA/dB/dC bit-equal to "
+                                 f"the plain route: {equal}")
+        err, worst = off_by(((y.detach(), yp.detach()),
+                             (st.detach(), sp.detach())), 3e-4)
+        if not worst <= 1.0:
+            raise AssertionError(f"ssd {label}: forward off the plain "
+                                 f"version: {err}")
+        del yp, sp, pgrads, pins
+        big = S >= 1024
+        fwd_ms = device_ms(torch, lambda: ssd(*args, chunk=chunk),
+                           batch=2 if big else 10,
+                           reps=10 if big else TIMING_REPS)
+        bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
+            y, ins, gy, retain_graph=True), batch=1 if big else 10,
+            reps=5 if big else TIMING_REPS)
+        n_bytes, n_flops = ssd_bwd_work(b, S, H, P, G, N, chunk)
+        bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS / 3)
+        f32_ms = n_flops / F32_FLOPS * 1e3
+        rows[label] = {"shape": [b, S, H, P, G, N], "chunk": chunk,
+                       "grads_bit_equal": True, "max_abs_err": err,
+                       "of_tol": worst, "fwd_ms": fwd_ms,
+                       "plain_bwd_ms": bwd_ms, "bwd_bound_ms": bms,
+                       "bwd_bound_by": by, "bwd_bytes": n_bytes,
+                       "bwd_flops": n_flops, "bwd_f32_cores_ms": f32_ms}
+        log(f"[ssd-grad] {label} {(b, S, H, P)} G {G} N {N} chunk {chunk} "
+            f"float32: dx/ddt/dA/dB/dC bit-equal to the plain route; "
+            f"forward max err {err:.3g} ({worst:.3f} of tol 3e-4); kernel "
+            f"forward {fwd_ms:.4f} ms, plain backward {bwd_ms:.3f} ms (its "
+            f"bound {bms:.4f} ms, {by}: {n_flops / 1e9:.2f} GFLOP x 3 bf16 "
+            f"products, {n_bytes / 1e6:.1f} MB; on the CUDA cores alone "
+            f"{f32_ms:.4f} ms)")
+        del y, st, grads, ins, args, gy
+    torch.cuda.empty_cache()
+    return rows
+
+
+def mamba2_step_work(cfg, q) -> dict:
+    """The least work of one local step of 17c: the GEMMs' FLOPs (forward
+    and backward, 6 a matmul parameter a token, and the layers' remat
+    forward, 2) and the SSD scan's (the forward twice, the backward once,
+    ``ssd_work`` / ``ssd_bwd_work`` at the training layer)."""
+    from repro_torch.models.transformer import padded_vocab
+
+    ssm = cfg.ssm
+    d_inner = ssm.expand * cfg.d_model
+    H = d_inner // ssm.head_dim
+    d_in_proj = 2 * d_inner + 2 * ssm.n_groups * ssm.d_state + H
+    layers = cfg.n_layers * (cfg.d_model * d_in_proj + d_inner * cfg.d_model)
+    mm_all = layers + cfg.d_model * padded_vocab(cfg)
+    tokens = q["clients"] * q["batch"] * q["seq"]
+    gemm = tokens * (6 * mm_all + 2 * layers)
+    shape = (q["batch"], q["seq"], H, ssm.head_dim, ssm.n_groups,
+             ssm.d_state, ssm.chunk_size)
+    scan = cfg.n_layers * q["clients"] * (
+        2 * ssd_work(*shape, 4)[1] + ssd_bwd_work(*shape)[1])
+    return {"gemm_flops": gemm, "scan_flops": scan,
+            "bound_ms": (gemm / BF16_FLOPS + scan / (BF16_FLOPS / 3)) * 1e3}
+
+
+def run_mamba2_training(torch, tmp: Path) -> dict:
+    """Phase 17c: mamba2-2.7b at full width and depth (64 layers, bf16,
+    seed 0) through ``launch/train.main`` with ``--profile --profile-dir
+    --profile-calls --trace --ckpt-out``: the loss finite and its last
+    stage's mean below its first's, the launches of the path, the ledger
+    equal to rounds x clients x a replica's bytes, ms a step (the median
+    of the untraced train steps after the first) against its bound
+    (``mamba2_step_work``), peak memory, the skew table, device ms a step
+    by kind from the profiler's window and the plain SSD backward's share
+    of the step; the Chrome trace parses and holds the train_step spans,
+    its .jsonl round-trips through read_jsonl, the torch.profiler trace
+    exists under the profile dir. Then one client's fused update at the
+    trained state, as 16c checks it."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as TT
+    from repro_torch.obs import read_jsonl
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    q = MAMBA2_TRAIN
+    cfg = get_arch("mamba2-2.7b")
+    trace, prof_dir, ck = tmp / "train.json", tmp / "prof", tmp / "ck"
+    argv = ["--arch", "mamba2-2.7b", "--clients", str(q["clients"]),
+            "--batch", str(q["batch"]), "--seq", str(q["seq"]),
+            "--algo", "stl_sc", "--eta1", str(q["eta1"]),
+            "--T1", str(q["T1"]), "--k1", str(q["k1"]),
+            "--stages", str(q["stages"]), "--steps", str(q["steps"]),
+            "--profile", "--profile-dir", str(prof_dir),
+            "--profile-calls", str(q["profile_calls"]),
+            "--trace", str(trace), "--ckpt-out", str(ck)]
+    log(f"[mamba2-train] launch.train.main {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    ds = TT.main(argv)
+    torch.cuda.synchronize()
+    t_end = time.monotonic()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = ds.profile
+    steps = [r for r in prof.records if r.name == "train_step"]
+    untraced = [r.measured_s for r in steps[1:] if not r.attrs.get("traced")]
+    ms_step = statistics.median(untraced) * 1e3
+    work = mamba2_step_work(cfg, q)
+    losses = [r.mean_loss for r in ds.results]
+    n_params = sum(t[0].numel() for t in tree_leaves(ds.state["params"]))
+    per_client = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(ds.state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [ds.state["params"], ds.state["opt"]])) / 1e9
+    log(f"[mamba2-train] mamba2-2.7b, {cfg.n_layers} layers: {n_params} "
+        f"parameters a client, state {state_gb:.2f} GB; {ds.iters_total} "
+        f"local steps, {ds.rounds_total} rounds; main() {t_end - t0:.2f} s "
+        f"({t_end - steps[-1].t1:.2f} s after the last step: the skew "
+        f"table, the trace and the checkpoint); {ms_step:.2f} ms a step "
+        f"(median of {len(untraced)} untraced steps; the first "
+        f"{steps[0].measured_s * 1e3:.1f} ms) against a {work['bound_ms']:.2f}"
+        f" ms bound ({work['gemm_flops'] / 1e12:.2f} TFLOP of GEMMs at 989 "
+        f"TFLOP/s, {work['scan_flops'] / 1e12:.2f} TFLOP of scan at a third "
+        f"of it); eta1 {q['eta1']}; stage mean losses "
+        f"{[round(v, 4) for v in losses]}; peak memory {peak_gb:.2f} GB; "
+        f"comm bytes {ds.comm_bytes_total}; launches {counts}")
+    for row in prof.skew_table():
+        log(f"[mamba2-train] skew {row['name']:<12} calls {row['calls']:3d} "
+            f"modeled {row['modeled_s']:.4e} s measured "
+            f"{row['measured_s']:.4e} s skew {row['skew']:.2f}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"mamba2 training: stage losses {losses}")
+    if ds.comm_bytes_total != ds.rounds_total * q["clients"] * per_client:
+        raise AssertionError(f"mamba2 training: ledger {ds.comm_bytes_total}")
+    expect_launches("mamba2 training", counts,
+                    lm_launches(cfg, ds, q["clients"], 0))
+
+    # the files the flags asked for
+    events = json.load(open(trace))["traceEvents"]
+    xs = [e for e in events if e["ph"] == "X"]
+    n_step_spans = sum(e["name"] == "profile.train_step" for e in xs)
+    spans = read_jsonl(str(trace) + "l")
+    if n_step_spans != ds.iters_total or len(spans) != len(xs) or \
+            [s.name for s in spans] != [e["name"] for e in xs]:
+        raise AssertionError(f"mamba2 training: trace {n_step_spans} "
+                             f"train_step spans, {len(xs)} events, "
+                             f"{len(spans)} spans read back")
+    ptrace = prof.trace_path
+    if not ptrace or Path(ptrace).parent != prof_dir or \
+            not Path(ptrace).stat().st_size:
+        raise AssertionError(f"mamba2 training: no torch.profiler trace "
+                             f"under {prof_dir}: {ptrace}")
+    traced = [r.name for r in prof.records if r.attrs.get("traced")]
+    n_traced = traced.count("train_step")
+    kinds = device_ms_by_kind(
+        torch, prof.profiler, n_traced,
+        {"gemm": GEMM_KERNELS, "ssd_forward": ("ssd_cb_kernel",
+                                               "ssd_chunk_kernel"),
+         "fused_update": ("fused_sgd_update",),
+         "loss_log_softmax": ("LogSoftMax",)},
+        {"ssd_backward": "ssd.backward"})
+    out = {"params_per_client": n_params, "state_gb": state_gb,
+           "iters": ds.iters_total, "rounds": ds.rounds_total,
+           "ms_per_step": ms_step, "first_step_ms":
+           steps[0].measured_s * 1e3, **work, "eta1": q["eta1"],
+           "stage_losses": losses, "peak_gb": peak_gb,
+           "comm_bytes": ds.comm_bytes_total, "launches": counts,
+           "skew_table": prof.skew_table(), "traced_calls": traced,
+           "trace_spans": len(spans),
+           "profile_trace_mb": Path(ptrace).stat().st_size / 1e6,
+           "after_last_step_s": t_end - steps[-1].t1}
+    if kinds is None:
+        log("[mamba2-train] device time by kind not measured (no CUDA "
+            "events traced)")
+    else:
+        by = kinds["by_kind_ms_per_step"]
+        traced_ms = statistics.median(r.measured_s for r in steps
+                                      if r.attrs.get("traced")) * 1e3
+        window_ms = sum(r.measured_s for r in prof.records
+                        if r.attrs.get("traced")) * 1e3
+        busy = 100 * busy_union_us(torch, prof.profiler) / 1e3 / window_ms
+        share = by["ssd_backward"] / traced_ms
+        out.update(profile={k: v for k, v in kinds.items() if k != "top"},
+                   traced_step_ms=traced_ms, busy_union_pct=busy,
+                   ssd_backward_share=share)
+        log(f"[mamba2-train] profile of {n_traced} traced train steps "
+            f"({traced} traced; {traced_ms:.2f} ms a traced step, "
+            f"{out['profile_trace_mb']:.1f} MB of trace): "
+            f"{kinds['kernels_per_step']:.0f} kernels a step, a kernel "
+            f"running {busy:.1f}% of the window, device "
+            f"{kinds['kernel_ms_per_step']:.2f} ms a step; by kind: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
+            + f" ms a step; the plain SSD backward {100 * share:.1f}% of a "
+            f"traced step (its products are among the GEMMs too)")
+        for line in kinds["top"]:
+            log(f"[mamba2-train]   {line}")
+    # per-leaf float64 sums of the consensus the checkpoint holds, for 17d
+    # (before the update check, which steps client 0's rows in place)
+    consensus = tree_map(lambda p: torch.mean(p, dim=0), ds.state["params"])
+    out["consensus_sums"] = [float(t.double().sum())
+                             for t in tree_leaves(consensus)]
+    del consensus
+    torch.cuda.empty_cache()
+    out["update_check"] = check_lm_update(torch, cfg, ds.state, q)
+    del ds, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def serve_checkpoint(torch, ck: Path, tmp: Path, sums) -> dict:
+    """Phase 17d: 17c's checkpoint behind ``launch/serve.main(["--ckpt",
+    ..., "--trace", ..., "--profile"])`` on the card: every request served,
+    the restored params' per-leaf sums equal those of the consensus 17c
+    trained, the SSD launches equal 64 a multi-token prefill, each first
+    token equal to ``greedy_decode``'s on the restored params (later ones
+    up to a near tie, as phase 10), the serve trace parses."""
+    from unittest import mock
+
+    from repro_torch import kernels
+    from repro_torch.launch import serve as TS
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import ServeEngine
+    from repro_torch.utils.tree import tree_leaves
+
+    s = SERVE_CKPT
+    strace = tmp / "serve.json"
+    seen = {}
+    run = ServeEngine.run
+
+    def spy(self, requests, *a, **kw):
+        seen["engine"], seen["requests"] = self, requests
+        return run(self, requests, *a, **kw)
+
+    argv = ["--ckpt", str(ck), "--trace", str(strace), "--profile",
+            "--requests", str(s["requests"]), "--slots", str(s["slots"]),
+            "--prompt-len", str(s["prompt_len"]), "--gen", str(s["gen"]),
+            "--max-seq-len", str(s["max_seq_len"])]
+    log(f"[serve-ckpt] launch.serve.main {' '.join(argv)}")
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    with mock.patch.object(ServeEngine, "run", spy):
+        report = TS.main(argv)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = kernels.launch_counts()
+    eng, reqs = seen["engine"], seen["requests"]
+    got = [float(t.double().sum()) for t in tree_leaves(
+        TF.to_grouped(eng.params, eng.cfg))]
+    if got != sums:
+        raise AssertionError("serve from the checkpoint: the restored "
+                             "params differ from the trained consensus")
+    multi = sum(1 for r in reqs if r.prompt_len > 1)
+    log(f"[serve-ckpt] {eng.cfg.name} restored and served in {wall:.2f} s: "
+        f"{len(report.completed)}/{len(reqs)} requests (prompts "
+        f"{[r.prompt_len for r in reqs]}), {report.n_prefills} prefills, "
+        f"{report.n_steps} decode steps; launches {counts}; the restored "
+        f"params' per-leaf sums equal the trained consensus's")
+    for row in report.profile.skew_table():
+        log(f"[serve-ckpt] skew {row['name']:<17} calls {row['calls']:3d} "
+            f"modeled {row['modeled_s']:.4e} s measured "
+            f"{row['measured_s']:.4e} s skew {row['skew']:.2f}")
+    if len(report.completed) != len(reqs) or \
+            counts["ssd"] != eng.cfg.n_layers * multi:
+        raise AssertionError(f"serve from the checkpoint: {counts['ssd']} "
+                             f"ssd launches for {multi} multi-token "
+                             f"prefills, {len(report.completed)} served")
+    names = {e["name"] for e in json.load(open(strace))["traceEvents"]}
+    if not {"serve_run", "decode_step", "profile.serve.prefill"} <= names:
+        raise AssertionError(f"serve from the checkpoint: trace {names}")
+    compared, total = hold_to_greedy(torch, "mamba2-2.7b (checkpoint)",
+                                     eng.params, eng.cfg, reqs,
+                                     report.records, s["max_seq_len"])
+    log(f"[serve-ckpt] tokens held to greedy_decode: {compared} of {total}")
+    out = {"wall_s": wall, "requests": len(reqs), "launches": counts["ssd"],
+           "multi_token_prefills": multi, "tokens_compared": compared,
+           "tokens_total": total, "skew_table": report.profile.skew_table()}
+    del eng, seen, report
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_mamba2_phase(torch) -> dict:
+    """Phase 17: 17a the SSD Function's gradients, 17b mamba2 SMOKE card
+    against CPU, 17c mamba2-2.7b training at full width and depth, 17d
+    serving its checkpoint. The checkpoint and traces go to a temporary
+    directory, removed at the end."""
+    import tempfile
+
+    out = {"ssd_grad": check_ssd_grad(torch),
+           "check": train_reference_check(torch, "mamba2-2.7b")}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        train = run_mamba2_training(torch, tmp)
+        sums = train.pop("consensus_sums")
+        out["train"] = train
+        out["serve"] = serve_checkpoint(torch, tmp / "ck", tmp, sums)
     return out
 
 
@@ -3060,7 +3525,24 @@ def main() -> int:
             launches[k] += part[k]
     log(f"[time] phase 16: {time.monotonic() - t0:.1f} s")
 
-    # phase 17: summary
+    # phase 17: Mamba2 training — the SSD Function's gradients on the card,
+    # mamba2 SMOKE card against CPU, mamba2-2.7b at full width and depth
+    # through launch/train, then serving its checkpoint
+    t0 = time.monotonic()
+    m2 = run_mamba2_phase(torch)
+    m2_shapes = lm_path_shapes("mamba2-2.7b", "mamba2")
+    path_rows.update(check_kernels(torch, m2_shapes, floor))
+    path_shapes.update(m2_shapes)
+    # the launches of 17b's three card runs, 17c's main run and 17d's
+    # serving run
+    for part in (*m2["check"]["launches"].values(),
+                 m2["train"]["launches"]):
+        for k in (*TRAIN_KERNELS, "ssd"):
+            launches[k] += part[k]
+    launches["ssd"] += m2["serve"]["launches"]
+    log(f"[time] phase 17: {time.monotonic() - t0:.1f} s")
+
+    # phase 18: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -3110,6 +3592,7 @@ def main() -> int:
             out[-1]["path_trees"] = path_tree_rows
             out[-1]["cnn_tree"] = cnn_tree_rows
             out[-1]["lm_client_tree"] = lm["update_check"]
+            out[-1]["mamba2_client_tree"] = m2["train"]["update_check"]
         if kname == "quantize_kernel":   # the scalar instantiation
             out[-1]["odd_view"] = {
                 label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
@@ -3134,15 +3617,22 @@ def main() -> int:
                 "source": "src/repro_torch/kernels/csrc/ssd.cu",
                 "replaces": "src/repro/kernels/ssd/kernel.py:68",
                 "launches": launches["ssd"],
-                "max_abs_err": max(r["max_abs_err"] for r in ssd_rows.values()),
+                "max_abs_err": max([r["max_abs_err"]
+                                    for r in ssd_rows.values()]
+                                   + [r["max_abs_err"] for r in
+                                      m2["ssd_grad"].values()]),
                 "ms": m["ms"], "plain_ms": m["plain_ms"],
                 "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
-                "library_ms": None, "shape": m["shape"], "shapes": ssd_rows})
+                "library_ms": None, "shape": m["shape"], "shapes": ssd_rows,
+                "train": m2["ssd_grad"],
+                "train_launches": m2["train"]["launches"]["ssd"]
+                + sum(v["ssd"] for v in m2["check"]["launches"].values())})
     log(json.dumps({"kernels": out, "slice_profile": profiles,
                     "serve": serve, "serve_mamba2": serve_m,
                     "adaptive": adaptive, "runtime_sync": runtime_sync,
                     "runtime_async": runtime_async, "hierarchical": hier,
-                    "cnn": cnn_run, "lm_train": lm, "card": smi}))
+                    "cnn": cnn_run, "lm_train": lm, "mamba2": m2,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

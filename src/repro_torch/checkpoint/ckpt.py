@@ -49,8 +49,9 @@ def save_checkpoint(directory: str, step: int, tree, meta: Optional[dict] = None
 
 def _restore(arr: np.ndarray, leaf_t):
     if isinstance(leaf_t, torch.Tensor):
-        return torch.from_numpy(arr).to(device=leaf_t.device,
-                                        dtype=leaf_t.dtype)
+        # a meta tensor (``init_params_shape``) names a type, not a place
+        dev = "cpu" if leaf_t.is_meta else leaf_t.device
+        return torch.from_numpy(arr).to(device=dev, dtype=leaf_t.dtype)
     if isinstance(leaf_t, (bool, int, float)):
         return type(leaf_t)(arr)
     return arr
@@ -60,7 +61,8 @@ def load_checkpoint(directory: str, template, step: Optional[int] = None
                     ) -> Tuple[Any, dict]:
     """(tree shaped as ``template``, meta). A tensor leaf of the template
     gives a tensor of its type on its device (bf16 cast back from the
-    widened float32), a Python scalar a scalar, anything else the array."""
+    widened float32; on the CPU for a meta tensor), a Python scalar a
+    scalar, anything else the array."""
     if step is None:
         step = latest_step(directory)
         if step is None:

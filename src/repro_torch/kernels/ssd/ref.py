@@ -16,6 +16,8 @@ CPU tensor runs and what the CUDA kernel is held to on the card.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 
@@ -76,8 +78,10 @@ def ssd_chunked_ref(x, dt, A, B, C, chunk: int, initial_state=None):
     cums = torch.cumsum(dA, dim=-1)
     diff = cums[..., :, None] - cums[..., None, :]
     tri = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    # select, never multiply by a mask: exp of the upper triangle overflows
-    L = torch.where(tri, torch.exp(diff), torch.zeros((), device=x.device))
+    # mask before the exp, never multiply by a mask or select after it: exp
+    # of the upper triangle overflows, and its gradient (0 · inf) is NaN
+    L = torch.exp(torch.where(tri, diff,
+                              torch.full((), -math.inf, device=x.device)))
     xdt = xs * dts[..., None]                             # (b,nc,Q,H,P)
 
     CB = torch.einsum("bcqhn,bcshn->bchqs", Cc, Bc)       # (b,nc,H,Q,Q)

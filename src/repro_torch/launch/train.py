@@ -14,8 +14,10 @@ Examples:
       --clients 2 --batch 2 --seq 1024 --eta1 0.03 --k1 4 --T1 16 \\
       --stages 2
 
-``--trace`` / ``--profile`` / ``--profile-dir`` wait for their slice
-(ROADMAP queue 1, item 7: ``obs/export.py`` and ``obs/profile.py``).
+  # with a Chrome trace of the run's spans, the modeled-vs-measured skew
+  # table and a torch.profiler trace, then a serveable checkpoint
+  python -m repro_torch.launch.train --arch mamba2-2.7b --smoke \
+      --trace /tmp/run.json --profile-dir /tmp/prof --ckpt-out /tmp/ck
 """
 from __future__ import annotations
 
@@ -27,14 +29,14 @@ import torch
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_arch
-from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.base import ShapeConfig, TrainConfig
 from repro_torch.core import local_sgd as LS
 from repro_torch.core.simulate import resolve_device
 from repro_torch.core.stl_sgd import StagewiseDriver
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.engine import algorithm_names
 from repro_torch.models.attention import _not_ported
-from repro_torch.utils.logging import get_logger
+from repro_torch.utils.logging import RUN_ID, get_logger
 from repro_torch.utils.tree import tree_map
 
 log = get_logger("train")
@@ -101,15 +103,25 @@ def main(argv=None):
     ap.add_argument("--ckpt-out", default=None, metavar="DIR",
                     help="write the final consensus params with the "
                          "schedule in the checkpoint's meta")
-    ap.add_argument("--trace", default=None, metavar="OUT.json")
-    ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--profile-dir", default=None, metavar="DIR")
+    ap.add_argument("--trace", default=None, metavar="OUT.json",
+                    help="export a Perfetto-loadable Chrome trace of the "
+                         "run's span timeline (plus the comm.*/train.* "
+                         "counter tracks) to this path, and a .jsonl span "
+                         "log next to it")
+    ap.add_argument("--profile", action="store_true",
+                    help="wall-time the train/sync steps (synchronised "
+                         "with the card) against their modeled prices and "
+                         "print the modeled-vs-measured skew table")
+    ap.add_argument("--profile-dir", default=None, metavar="DIR",
+                    help="also bracket the run in a torch.profiler session "
+                         "writing its Chrome trace to DIR (implies "
+                         "--profile)")
+    ap.add_argument("--profile-calls", type=int, default=None, metavar="N",
+                    help="with --profile-dir: trace N step calls after a "
+                         "warm-up call instead of the whole run (a "
+                         "full-width run's whole trace takes gigabytes)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if args.trace or args.profile or args.profile_dir:
-        raise NotImplementedError(
-            "--trace / --profile / --profile-dir are not ported yet (ROADMAP "
-            "queue 1, item 7: obs/export.py and obs/profile.py)")
 
     cfg = get_arch(args.arch, smoke=args.smoke)
     if args.layers is not None:
@@ -148,17 +160,62 @@ def main(argv=None):
                 loss_fn=lambda p, c, b: pl(p, b, center))
             return tl(state, batch, eta)
 
+    profile = None
+    if args.profile or args.profile_dir:
+        from repro_torch.obs import ProfileSession
+        from repro_torch.serve.engine import DeviceModel
+
+        profile = ProfileSession(logdir=args.profile_dir,
+                                 trace_calls=args.profile_calls)
+        # one train step = C clients × batch × seq tokens on the roofline
+        train_price = DeviceModel().step_time_s(
+            cfg, ShapeConfig("train_step", args.seq, C * args.batch,
+                             "train"))
+        # the sync round is priced from the driver's own topology, which
+        # only exists below — resolve the price lazily per call
+        sync_price = {"v": 0.0}
+        train_fn = profile.wrap(train_fn, "train_step", train_price)
+        # wrapping keeps the build_sync_step tags reachable through the
+        # __wrapped__ chain, so the driver still prices the tagged round
+        sync_fn = profile.wrap(sync_fn, "sync_step",
+                               lambda *a, **k: sync_price["v"])
+
     driver = StagewiseDriver(tcfg, train_fn, sync_fn, uses_center=uses_center)
+    if profile is not None:
+        template = tree_map(lambda p: p[0], state["params"])
+        sync_price["v"] = sum(
+            h.time_s for h in driver.build_topology().hop_costs(template, C))
     batches = synthetic_batches(cfg, C, args.batch, args.seq, args.seed,
                                 args.non_iid, device=dev)
+    tracer = None
+    if args.trace:
+        from repro_torch.obs import Tracer
+        tracer = Tracer(run_id=RUN_ID)
     t0 = time.time()
-    ds = driver.run(state, batches, max_iters=args.steps)
+    if profile is not None:
+        with profile:
+            ds = driver.run(state, batches, max_iters=args.steps,
+                            tracer=tracer)
+    else:
+        ds = driver.run(state, batches, max_iters=args.steps, tracer=tracer)
     dt = time.time() - t0
     log.info("done: %d iters, %d comm rounds, %.1fs (%.1f it/s)",
              ds.iters_total, ds.rounds_total, dt, ds.iters_total / max(dt, 1e-9))
     for r in ds.results:
         log.info("  stage %d: k=%d rounds=%d loss=%.4f", r.stage, r.k,
                  r.rounds, r.mean_loss)
+    if profile is not None:
+        from repro_torch.obs import format_skew_table
+        profile.emit_spans(tracer)
+        print(format_skew_table(profile.skew_table()))
+        ds.profile = profile
+    if tracer is not None:
+        from repro_torch.obs import series as obs_series
+        from repro_torch.obs import write_chrome_trace, write_jsonl
+        write_chrome_trace(tracer, args.trace,
+                           series=obs_series.registry())
+        write_jsonl(tracer, args.trace + "l")   # foo.json -> foo.jsonl
+        log.info("trace_written", path=args.trace, spans=len(tracer.spans))
     if args.ckpt_dir:
         save_checkpoint(args.ckpt_dir, ds.iters_total, ds.state["params"],
                         {"algo": args.algo, "rounds": ds.rounds_total})
@@ -170,6 +227,8 @@ def main(argv=None):
                              ds.state["params"])
         meta = {
             "arch": args.arch, "smoke": bool(args.smoke),
+            # the depth trained (``--layers``): serving rebuilds it
+            "n_layers": cfg.n_layers,
             "algo": args.algo, "eta1": args.eta1, "k1": args.k1,
             "T1": args.T1, "n_stages": args.stages,
             "iters": ds.iters_total, "rounds": ds.rounds_total,

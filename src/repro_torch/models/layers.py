@@ -55,6 +55,8 @@ def apply_rope(x, positions, theta: float):
 # ---------------------------------------------------------------------------
 
 def _normal(gen: torch.Generator, shape, std: float, dtype):
+    if gen.device.type == "meta":   # a shape template: nothing drawn
+        return torch.empty(shape, dtype=dtype, device="meta")
     x = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return x.mul_(std).to(dtype)

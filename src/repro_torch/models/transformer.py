@@ -10,6 +10,7 @@ onto this layout.
 
 Public API:
   init_params(cfg, seed=, device=)          -> params
+  init_params_shape(cfg)                    -> params as meta tensors
   forward(params, cfg, tokens)              -> (logits, aux)   # scoring
   init_cache(cfg, batch, max_len, dtype=, device=) -> cache
   prefill(params, cfg, tokens, cache)       -> (logits, cache)
@@ -45,7 +46,7 @@ from repro_torch.models import attention as A
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm, softcap)
-from repro_torch.utils.tree import tree_leaves, tree_map
+from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
 VOCAB_PAD = 256  # embedding rows padded as in the JAX package
 
@@ -69,14 +70,24 @@ def _plan(cfg: ArchConfig):
 def layer_views(grouped, cfg: ArchConfig):
     """The grouped layout (``head`` / ``blocks`` / ``tail``) → this module's
     layout: one dict per layer under ``layers``, each leaf a view of its
-    group's row of a stacked ``blocks`` leaf (no copy)."""
+    group's row of a stacked ``blocks`` leaf (no copy).
+
+    The rows come from one ``unbind`` a stacked leaf, not one index a
+    group: under autograd a row's gradient then joins the others in one
+    stack, where an index's backward would write a zero-filled copy of the
+    whole stacked leaf for each group and add them up (at 64 layers, most
+    of a step's memory traffic)."""
     _, n_groups, pattern, _ = _plan(cfg)
     out = {k: v for k, v in grouped.items()
            if k not in ("head", "blocks", "tail")}
     layers = list(grouped["head"])
+    subs = []
+    for i in range(len(pattern) if n_groups else 0):
+        leaves, treedef = tree_flatten(grouped["blocks"][f"sub{i}"])
+        subs.append((treedef, [torch.unbind(a, 0) for a in leaves]))
     for g in range(n_groups):
-        for i in range(len(pattern)):
-            layers.append(tree_map(lambda a: a[g], grouped["blocks"][f"sub{i}"]))
+        for treedef, rows in subs:
+            layers.append(treedef.unflatten([r[g] for r in rows]))
     layers += list(grouped["tail"])
     if len(layers) != cfg.n_layers:
         raise ValueError(f"{cfg.name}: the grouped tree holds {len(layers)} "
@@ -145,8 +156,28 @@ def init_params(cfg: ArchConfig, *, seed: int, device=None):
     """
     check_supported(cfg)
     dev = resolve_device(device)
+    return _build_params(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+class _NoDraws:
+    """Stands in for the ``torch.Generator`` of ``_build_params`` where only
+    shapes are wanted (a generator has no meta device): the init helpers
+    allocate on its device, ``meta``, and draw nothing."""
+
+    device = torch.device("meta")
+
+
+def init_params_shape(cfg: ArchConfig):
+    """The tree of ``init_params(cfg, ...)`` as meta tensors: shapes and
+    types only, nothing allocated and nothing drawn (the counterpart of
+    the JAX package's ``jax.eval_shape`` template)."""
+    check_supported(cfg)
+    return _build_params(_NoDraws(), cfg)
+
+
+def _build_params(gen, cfg: ArchConfig):
+    dev = gen.device
     dtype = getattr(torch, cfg.dtype)
-    gen = torch.Generator(device=dev).manual_seed(seed)
     vp = padded_vocab(cfg)
     params = {"embed": embed_init(gen, vp, cfg.d_model, dtype),
               "final_norm": torch.zeros((cfg.d_model,), dtype=dtype,

@@ -30,15 +30,21 @@ measured alongside and never fed back into scheduling.
 """
 from __future__ import annotations
 
+import json
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
+import numpy as np
 import torch
 
+from repro_torch.checkpoint.ckpt import latest_step, load_checkpoint
 from repro_torch.comm.cost import NetworkModel, link_model
+from repro_torch.configs import get_arch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.core.serving import build_prefill_step, build_serve_step
+from repro_torch.core.simulate import resolve_device
 from repro_torch.launch.flops import shape_flops
 from repro_torch.models import transformer as TF
 from repro_torch.obs import metrics as obs_metrics
@@ -49,6 +55,10 @@ from repro_torch.serve import ledger as serve_ledger
 from repro_torch.serve.ledger import RequestRecord
 from repro_torch.serve.scheduler import Scheduler, SchedulerConfig
 from repro_torch.serve.traffic import Request, offered_load
+from repro_torch.utils.logging import get_logger
+from repro_torch.utils.tree import tree_map
+
+log = get_logger("serve")
 
 # NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
 H100_PEAK_FLOPS_BF16 = 989e12
@@ -171,6 +181,42 @@ class ServeEngine:
             cfg, ShapeConfig("serve_decode", self.max_seq_len,
                              self.n_slots, "decode"))
 
+    # -- construction -------------------------------------------------------
+
+    @classmethod
+    def from_checkpoint(cls, directory: str, step: Optional[int] = None,
+                        torch_device=None, **kwargs) -> "ServeEngine":
+        """Restore a ``launch/train.py --ckpt-out`` artifact (either
+        package's) and serve it on ``torch_device`` (None means CUDA).
+
+        The template load needs an arch before it can build shapes, so the
+        restore is two-phase: peek at the npz's ``__meta__`` for the arch
+        name (and the depth trained, where the port's ``--layers`` cut it),
+        build the params template (``init_params_shape``, in the training
+        layout the checkpoint holds), then do the real shape/type-checked
+        load and move the leaves to the device.
+        """
+        s = step if step is not None else latest_step(directory)
+        if s is None:
+            raise FileNotFoundError(f"no checkpoints in {directory}")
+        path = os.path.join(directory, f"step_{s:010d}.npz")
+        with np.load(path, allow_pickle=False) as z:
+            meta = json.loads(bytes(z["__meta__"].tobytes()).decode())
+        if "arch" not in meta:
+            raise ValueError(
+                f"{path}: checkpoint meta has no 'arch' key — was it "
+                "written by launch/train.py --ckpt-out?")
+        cfg = get_arch(meta["arch"], smoke=bool(meta.get("smoke", False)))
+        if meta.get("n_layers", cfg.n_layers) != cfg.n_layers:
+            cfg = cfg.replace(n_layers=int(meta["n_layers"]))
+        template = TF.to_grouped(TF.init_params_shape(cfg), cfg)
+        params, meta = load_checkpoint(directory, template, step=s)
+        dev = resolve_device(torch_device)
+        params = TF.layer_views(tree_map(lambda t: t.to(dev), params), cfg)
+        log.info("restored %s step=%d (algo=%s rounds=%s)", meta["arch"], s,
+                 meta.get("algo"), meta.get("rounds"))
+        return cls(cfg, params, **kwargs)
+
     # -- pricing ------------------------------------------------------------
 
     def prefill_s(self, req: Request) -> float:
@@ -184,15 +230,18 @@ class ServeEngine:
     @torch.no_grad()
     def run(self, requests: List[Request], tracer=None,
             registry: Optional[obs_metrics.MetricsRegistry] = None,
-            series: Optional[obs_series.SeriesRegistry] = None
-            ) -> ServeReport:
+            series: Optional[obs_series.SeriesRegistry] = None,
+            profile=None) -> ServeReport:
         """Serve ``requests`` (open loop) until the system drains.
 
         ``series`` (default: the process registry) receives the live
         virtual-clock telemetry — ``serve.queue_depth`` /
         ``serve.batch_occupancy`` per decode step, the cumulative
         ``serve.tokens_total`` (plus its derived ``serve.tokens_s`` rate)
-        and the per-request latency sample series.
+        and the per-request latency sample series. ``profile`` (an
+        ``obs.ProfileSession``) wall-times every prefill/decode call,
+        synchronised with the card, against its modeled price for the
+        skew table.
         """
         if any(r.frontend is not None for r in requests):
             raise NotImplementedError("frontend embeddings are not ported "
@@ -267,9 +316,14 @@ class ServeEngine:
                 rec.slot, rec.admit_s = slot, clock.now
                 prompt = torch.as_tensor(req.prompt[None, :],
                                          dtype=torch.long, device=dev)
-                logits, _ = self._prefill(
-                    self.params, TF.cache_rows(stacked, slot, slot + 1),
-                    prompt)
+                p_args = (self.params, TF.cache_rows(stacked, slot, slot + 1),
+                          prompt)
+                if profile is not None:
+                    logits, _ = profile.step("serve.prefill",
+                                             self.prefill_s(req),
+                                             self._prefill, *p_args)
+                else:
+                    logits, _ = self._prefill(*p_args)
                 tok1 = torch.argmax(logits[:, -1:], dim=-1)    # (1, 1)
                 del logits
                 toks[slot] = tok1[0]
@@ -289,7 +343,13 @@ class ServeEngine:
                 t0 = clock.now
                 s_queue.record(t0, float(sched.queue_depth))
                 s_occ.record(t0, float(len(active)))
-                logits, stacked = self._decode(self.params, stacked, toks)
+                if profile is not None:
+                    logits, stacked = profile.step(
+                        "serve.decode_step", self.decode_step_s,
+                        self._decode, self.params, stacked, toks)
+                else:
+                    logits, stacked = self._decode(self.params, stacked,
+                                                   toks)
                 toks = torch.argmax(logits, dim=-1)            # (n_slots, 1)
                 del logits
                 clock.advance(clock.now + self.decode_step_s)

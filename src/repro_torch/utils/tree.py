@@ -164,3 +164,38 @@ def tree_to(a, device=None, dtype=None):
     """Move (and optionally cast) every leaf."""
     return tree_map(lambda x: torch.as_tensor(x).to(device=device,
                                                     dtype=dtype), a)
+
+
+def tree_add(a, b):
+    """Leafwise a + b."""
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(a, s):
+    """Leafwise s * a for scalar s."""
+    return tree_map(lambda x: x * s, a)
+
+
+def tree_stack_leading(trees):
+    """Stack a list of trees along a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=0), *trees)
+
+
+def tree_take(a, i):
+    """Index the leading axis of every leaf (client i's replica, a view)."""
+    return tree_map(lambda x: x[i], a)
+
+
+def tree_l2_norm(a):
+    """Global l2 norm across all leaves, summed in float32."""
+    return torch.sqrt(sum(torch.sum(torch.square(x.float()))
+                          for x in tree_leaves(a)))
+
+
+def tree_size(a) -> int:
+    """Total number of scalar parameters."""
+    return sum(x.numel() for x in tree_leaves(a))
+
+
+def tree_bytes(a) -> int:
+    return sum(x.numel() * x.element_size() for x in tree_leaves(a))

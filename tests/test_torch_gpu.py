@@ -903,8 +903,8 @@ def test_cnn_simulator_runs_through_the_kernels(f32_convs):
 
 
 # ---------------------------------------------------------------------------
-# Transformer training: the flash Function's backward, the SSD guard, the
-# update of one client's bf16 rows
+# Training: the flash and SSD Functions' backward, the update of one
+# client's bf16 rows; the profile session on the card
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,B,S,H,KV,D,window,cap", [
@@ -948,22 +948,70 @@ def test_flash_gradients_equal_the_plain_route(cuda, dtype, B, S, H, KV, D,
                                    rtol=1e-5)
 
 
-def test_ssd_refuses_grad_on_the_card(cuda):
-    from repro_torch.kernels.ssd.ops import ssd
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("b,S,H,P,N,chunk", [
+    (1, 64, 2, 64, 16, 64),
+    (2, 300, 4, 64, 128, 128),      # a 44-row last chunk
+])
+def test_ssd_gradients_equal_the_plain_route(cuda, b, S, H, P, N, chunk,
+                                             init):
+    """The kernel route's y and final state have a grad_fn and their
+    gradients in x, dt, A, B, C and the initial state equal autograd
+    through the plain version bit for bit (both differentiate the same
+    recomputed plain scan); under no_grad the call builds no graph."""
+    from repro_torch.kernels.ssd.ops import plain_ssd, ssd
 
-    g = torch.Generator(device=cuda).manual_seed(4)
-    x = torch.randn((1, 64, 2, 64), generator=g, device=cuda)
-    dt = torch.rand((1, 64, 2), generator=g, device=cuda)
-    A = -torch.rand((2,), generator=g, device=cuda)
-    Bm, Cm = (torch.randn((1, 64, 1, 16), generator=g, device=cuda)
-              for _ in range(2))
+    x, dt, A, B, C = _ssd_inputs(cuda, b, S, H, P, 1, N)
+    g = torch.Generator(device=cuda).manual_seed(S)
+    h0 = torch.randn((b, H, P, N), generator=g, device=cuda) if init else None
+    gy = torch.randn(x.shape, generator=g, device=cuda)
+    gs = torch.randn((b, H, P, N), generator=g, device=cuda)
+    base = [x, dt, A, B, C] + ([h0] if init else [])
+    ins = [t.clone().requires_grad_() for t in base]
     before = SSD.ssd.launches
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd(x.requires_grad_(), dt, A, Bm, Cm, chunk=64)
-    assert SSD.ssd.launches == before
-    with torch.no_grad():
-        ssd(x, dt, A, Bm, Cm, chunk=64)
+    y, st = ssd(*ins[:5], chunk=chunk, initial_state=ins[5] if init else None)
+    assert y.grad_fn is not None and st.grad_fn is not None
     assert SSD.ssd.launches == before + 1
+    got = torch.autograd.grad((y, st), ins, (gy, gs))
+    plain_ins = [t.clone().requires_grad_() for t in base]
+    yr, sr = plain_ssd(*plain_ins[:5], chunk,
+                       plain_ins[5] if init else None)
+    want = torch.autograd.grad((yr, sr), plain_ins, (gy, gs))
+    torch.cuda.synchronize()
+    assert SSD.ssd.launches == before + 1
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
+    torch.testing.assert_close(y.detach(), yr.detach(), atol=3e-4, rtol=3e-4)
+    with torch.no_grad():
+        y0, s0 = ssd(*ins[:5], chunk=chunk,
+                     initial_state=ins[5] if init else None)
+    assert y0.grad_fn is None and s0.grad_fn is None
+    assert SSD.ssd.launches == before + 2
+
+
+def test_profile_session_on_cuda_writes_its_trace(cuda, tmp_path):
+    """A ProfileSession over CUDA steps: each measured call waits for the
+    card, and the torch.profiler trace it writes holds the card's
+    kernels (a window of 2 calls after the warm-up call)."""
+    import json
+
+    from repro_torch.obs import ProfileSession
+
+    a = torch.randn((1024, 1024), device=cuda)
+    prof = ProfileSession(logdir=str(tmp_path), trace_calls=2)
+    with prof:
+        for _ in range(4):
+            out = prof.step("matmul", 1e-6, lambda: {"y": a @ a})
+    assert out["y"].is_cuda
+    assert [bool(r.attrs.get("traced")) for r in prof.records] == \
+        [False, True, True, False]
+    assert all(r.measured_s > 0 for r in prof.records)
+    events = json.load(open(prof.trace_path))["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels, "the trace holds no kernel of the card"
+    dev = [e for e in prof.profiler.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum(e.self_device_time_total for e in dev) > 0
 
 
 def test_update_of_one_clients_bf16_rows_matches_plain(cuda):

@@ -1,8 +1,8 @@
 """The port never touches JAX or the JAX package.
 
 Three checks: no ``jax`` / ``repro`` import anywhere in the port's
-sources (or in ``chip_smoke.py``); a fresh interpreter that imports every
-port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
+sources (or in ``chip_smoke.py`` and ``tools/torch_bench_diff.py``); a
+fresh interpreter that imports every port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
 port's entry points (``core.simulate.run``, ``runtime.run``, the CNN
 initializers, the training builders and launcher) refuse to run without CUDA unless asked for the CPU.
 """
@@ -44,7 +44,9 @@ def _forbidden(name: str) -> bool:
 
 
 def test_no_jax_or_repro_import_in_port_sources():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                           ROOT / "tools" /
+                                           "torch_bench_diff.py"]
     assert len(files) > 30
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
@@ -59,7 +61,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.models.cnn" in mods
     assert "repro_torch.engine.topology" in mods
     for m in ("optim.sgd", "checkpoint.ckpt", "core.local_sgd",
-              "core.stl_sgd", "core.baselines", "launch.train"):
+              "core.stl_sgd", "core.baselines", "launch.train",
+              "launch.serve", "obs.export", "obs.profile", "obs.diff",
+              "obs.slo"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"

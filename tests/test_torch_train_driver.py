@@ -312,10 +312,3 @@ def test_train_main_matches_jax(monkeypatch):
     for a, b in zip(got.results, want.results):
         assert a.mean_loss == pytest.approx(b.mean_loss, abs=2e-2)
     assert got.comm_bytes_total == want.comm_bytes_total
-
-
-def test_train_main_refuses_unported_flags():
-    for flag in (["--trace", "x.json"], ["--profile"]):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            TT.main(["--arch", "qwen3-14b", "--smoke", "--device", "cpu"]
-                    + flag)

@@ -8,12 +8,15 @@
   |gradient| (float32; both differentiate the same plain attention,
   summing float32 products in another order; measured ≤ 4e-6).
 * ``local_sgd.lm_loss`` value (1e-5 relative) and gradients of every leaf
-  (1e-5 of the leaf's largest |gradient|; measured ≤ 2e-6) on qwen3-14b
-  and gemma2-27b SMOKE in float32, the JAX params carried across in the
-  grouped layout. gemma2 covers the final softcap under autograd, the
-  sliding window (80 tokens, window 64) and the attention softcap in the
-  backward.
-* The SSD scan refuses inputs that require grad (it has no backward).
+  (1e-5 of the leaf's largest |gradient|; measured ≤ 2e-6, ≤ 4.4e-6 on
+  mamba2) on qwen3-14b, gemma2-27b and mamba2-2.7b SMOKE in float32, the
+  JAX params carried across in the grouped layout. gemma2 covers the
+  final softcap under autograd, the sliding window (80 tokens, window 64)
+  and the attention softcap in the backward; mamba2 runs 128 tokens, two
+  of its 64-row chunks (the JAX model's chunked scan needs S a multiple
+  of the chunk), through the SSD Function and its plain backward.
+* The SSD Function returns a gradient for every input that requires one
+  and builds no graph under ``no_grad``.
 """
 import jax
 import jax.numpy as jnp
@@ -81,7 +84,11 @@ def test_flash_gradients_need_no_grad_on_every_input():
     assert dk.shape == k.shape and bool(torch.isfinite(dk).all())
 
 
-@pytest.fixture(scope="module", params=["qwen3-14b", "gemma2-27b"])
+# tokens a sequence: mamba2's two chunks of 64 (S a multiple of the chunk)
+SEQ = {"qwen3-14b": 80, "gemma2-27b": 80, "mamba2-2.7b": 128}
+
+
+@pytest.fixture(scope="module", params=sorted(SEQ))
 def model(request):
     name = request.param
     jcfg = jax_get_arch(name, smoke=True).replace(dtype="float32")
@@ -92,7 +99,8 @@ def model(request):
 
 def test_lm_loss_and_gradients_match_jax(model):
     jcfg, tcfg, jp = model
-    toks = np.random.RandomState(2).randint(0, jcfg.vocab_size, (2, 81))
+    toks = np.random.RandomState(2).randint(
+        0, jcfg.vocab_size, (2, SEQ[jcfg.name.removesuffix("-smoke")] + 1))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
              "labels": toks[:, 1:].astype(np.int32)}
     jb = jax.tree.map(jnp.asarray, batch)
@@ -124,9 +132,11 @@ def test_grouped_layout_round_trips(model):
     back = TTF.to_grouped(views, tcfg)
     for a, b in zip(tree_leaves(back), tree_leaves(grouped)):
         assert torch.equal(a, b)
-    leaf = views["layers"][0]["attn"]["wq"]
+    block, name = (("mamba", "w_in") if "mamba" in views["layers"][0]
+                   else ("attn", "wq"))
+    leaf = views["layers"][0][block][name]
     leaf.add_(1.0)
-    assert torch.equal(grouped["blocks"]["sub0"]["attn"]["wq"][0], leaf)
+    assert torch.equal(grouped["blocks"]["sub0"][block][name][0], leaf)
 
 
 def test_serving_logits_keep_the_in_place_softcap():
@@ -146,16 +156,22 @@ def test_serving_logits_keep_the_in_place_softcap():
                                atol=1e-6, rtol=1e-6)
 
 
-def test_ssd_refuses_inputs_that_require_grad():
+def test_ssd_returns_gradients_on_every_input_and_none_under_no_grad():
     b, S, H, P, G, N = 1, 8, 2, 4, 1, 4
     g = torch.Generator().manual_seed(0)
-    x = torch.randn((b, S, H, P), generator=g, requires_grad=True)
-    dt = torch.rand((b, S, H), generator=g)
-    A = -torch.rand((H,), generator=g)
-    B, C = (torch.randn((b, S, G, N), generator=g) for _ in range(2))
-    with pytest.raises(RuntimeError, match="no backward"):
-        ssd(x, dt, A, B, C, chunk=4)
+    ins = [torch.randn((b, S, H, P), generator=g),
+           torch.rand((b, S, H), generator=g), -torch.rand((H,), generator=g),
+           torch.randn((b, S, G, N), generator=g),
+           torch.randn((b, S, G, N), generator=g),
+           torch.randn((b, H, P, N), generator=g)]
+    live = [t.clone().requires_grad_() for t in ins]
+    y, state = ssd(*live[:5], chunk=4, initial_state=live[5])
+    assert y.grad_fn is not None and state.grad_fn is not None
+    grads = torch.autograd.grad((y.sum(), state.sum()), live)
+    for t, d in zip(ins, grads):
+        assert d.shape == t.shape and bool(torch.isfinite(d).all())
+        assert float(d.abs().max()) > 0
     with torch.no_grad():
-        y, state = ssd(x, dt, A, B, C, chunk=4)
-    y2, _ = ssd(x.detach(), dt, A, B, C, chunk=4)
-    assert torch.equal(y, y2) and state.shape == (b, H, P, N)
+        y0, s0 = ssd(*live[:5], chunk=4, initial_state=live[5])
+    assert y0.grad_fn is None and s0.grad_fn is None
+    assert torch.equal(y0, y.detach()) and torch.equal(s0, state.detach())
