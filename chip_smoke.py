@@ -256,12 +256,62 @@ failure propagates, so the script exits non-zero and prints no result.
      consensus (per-leaf sums), 64 SSD launches a multi-token prefill,
      tokens held to ``greedy_decode`` on the restored params. Then the
      training kernels at the (2, n) blocks 17b's int8 rounds hand them.
- 18. One ``{"kernels": [...]}`` summary line (all five kernels; launches
+ 18. MoE and MLA. (a) SMOKE in float32, the card against the CPU: an
+     80-token prompt (past the 64-token windows) through ``prefill`` and
+     8 decode steps of gemma3-12b, minicpm3-4b (MLA), phi3.5-moe (MoE),
+     deepseek-v2 (MLA and MoE) and gemma2-27b with the int8 KV cache,
+     logits to 1e-4; a MoE arch's expert assignment (experts, ranks,
+     kept) equal in every layer call, the smallest top-k router margin
+     logged; the int8 cache's codes apart only by one step where the
+     runs' quotients lie within 5e-2 of a step of each other, and then
+     the logits held with the CPU run on the card's codes. phi3.5-moe
+     and minicpm3 SMOKE trained as 16b trains qwen3 (dense and int8
+     Star, 16b's limits); a MoE arch whose runs route a token apart must
+     first do so at near ties (router margin under 1e-3), and the state
+     both runs reach at the last local step before that is held to 16b's
+     limits; phi3.5's controls (flash output detached, and the router's
+     gradient 5% off under int8 Star) must be refused.
+     Flash at gemma3's local layer (1, 4,608, 16/8, 256, window 1,024)
+     and phi3.5's training layer (2, 1,024, 32/8, 128) as phase 5; the
+     zero-padded MLA call at deepseek's layer (1, 4,096, 128, 192/128 →
+     256) and minicpm3's (96/64 → 128) against the plain attention on the
+     unpadded dims, timed beside the unpadded work's bound and SDPA.
+     (b) deepseek-v2-236b at full width (d_model 5,120, MLA with 128
+     heads, 160 experts x 1,536 top-6 with 2 shared, dense layer 0, bf16,
+     seed 0), depth cut to 4 of 60 layers (26.6 GB), behind
+     ``ServeEngine`` with 4 slots of 4,096 tokens, 6 Poisson requests and
+     a 3,000-token prompt, as phase 7 (4 flash launches a prefill, tokens
+     held to ``greedy_decode``); prefill and decode-step ms beside the
+     bounds the engine prices, peak memory, the share of assignments
+     dropped by capacity at the 3,000-token prefill, and a profile of 4
+     decode steps: device ms a step by the layer's parts (attention, the
+     MoE layer and its ``moe.*`` ranges, the dense MLP, the rest) and the
+     share of the wall a kernel runs. (c) gemma3-12b at
+     full width and depth (48 layers, 5:1 local:global, window 1,024)
+     with the int8 KV cache behind ``ServeEngine`` (4 slots of 6,144, a
+     4,608-token prompt), as phase 7; the first decode step after a
+     2,000-token prompt within 2e-2 of the bf16 cache's largest logit;
+     the caches' bytes, int8 against bf16; the decode profile as (b),
+     with the int8 cache's dequantisation as a range of its own. (d) phi3.5-moe-42b-a6.6b at
+     full width (16 experts x 6,400 top-2), depth cut to 2 of 32 layers,
+     through ``launch/train.main`` (2 clients, 2 x 1,024 tokens a client
+     a step, stl_sc eta1 0.03, T1 16, k1 4, 2 stages cut at 32 local
+     steps, dense Star, ``--profile --profile-dir --profile-calls 2``):
+     the loss finite and falling, the aux term, flash 8 and the fused
+     update 4 launches a step, ms a step against the active FLOPs'
+     bound, peak memory, device ms a step by kind (GEMMs, the ``moe.*``
+     ranges and the MoE backward nodes, flash, the plain attention
+     backward, the update), one client's update at the trained state as
+     16c. Then the training kernels at the (2, n) blocks 18a's int8
+     rounds hand them that 16b's did not.
+ 19. One ``{"kernels": [...]}`` summary line (all five kernels; launches
      summed over each path's measured run: phases 4 and 11-15's, the
      three card runs of 16b and 17b, the main runs of 16c and 17c and
-     17d's serving run, not
+     17d's serving run, 18a's four card training runs, 18b's and 18c's
+     serving runs and 18d's main run, not
      the comparison launches, the profiles or 16c's streaming check; the
-     flash row carries phase 16a as ``train``, the SSD row phase 17a),
+     flash row carries phase 16a as ``train`` and 18a's padded MLA calls
+     as ``mla_shapes``, the SSD row phase 17a),
      then the last line ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
@@ -880,8 +930,23 @@ def sdpa_library(torch, q, k, v):
         is_causal=True, enable_gqa=True).transpose(1, 2)
 
 
-def check_flash(torch):
-    """Phase 5: flash attention against its plain version, and its times."""
+# label: (B, S, H, KV, D, dtype, window, softcap); gemma2-27b's layers at
+# its 4,608-token prefill, qwen3-14b's (40/8 heads) causal layer at the same
+# length, one D = 256 shape, a ragged and a float32 shape
+FLASH_CASES = {
+    "local": (1, 4608, 32, 16, 128, "bf16", 4096, 50.0),
+    "global": (1, 4608, 32, 16, 128, "bf16", None, 50.0),
+    "causal": (1, 4608, 32, 16, 128, "bf16", None, None),
+    "qwen3": (1, 4608, 40, 8, 128, "bf16", None, None),
+    "d256": (1, 4096, 16, 8, 256, "bf16", None, None),
+    "ragged": (1, 1000, 32, 16, 128, "bf16", None, 50.0),
+    "f32": (2, 300, 8, 4, 128, "f32", 128, 50.0),
+}
+
+
+def check_flash(torch, cases=None):
+    """Phase 5 (``FLASH_CASES``; phase 18a passes its own): flash attention
+    against its plain version, and its times."""
     from repro_torch.kernels.flash_attention.kernel import flash_attention
     from repro_torch.kernels.flash_attention.ref import (attention_ref,
                                                          bf16_mismatch)
@@ -890,20 +955,10 @@ def check_flash(torch):
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(1)
     bf, f32 = torch.bfloat16, torch.float32
-    # label: (B, S, H, KV, D, dtype, window, softcap); gemma2-27b's layers
-    # at its 4,608-token prefill, qwen3-14b's (40/8 heads) causal layer at
-    # the same length, one D = 256 shape, a ragged and a float32 shape
-    cases = {
-        "local": (1, 4608, 32, 16, 128, bf, 4096, 50.0),
-        "global": (1, 4608, 32, 16, 128, bf, None, 50.0),
-        "causal": (1, 4608, 32, 16, 128, bf, None, None),
-        "qwen3": (1, 4608, 40, 8, 128, bf, None, None),
-        "d256": (1, 4096, 16, 8, 256, bf, None, None),
-        "ragged": (1, 1000, 32, 16, 128, bf, None, 50.0),
-        "f32": (2, 300, 8, 4, 128, f32, 128, 50.0),
-    }
     rows = {}
-    for label, (B, S, H, KV, D, dt, window, cap) in cases.items():
+    for label, (B, S, H, KV, D, dtn, window, cap) in (
+            cases or FLASH_CASES).items():
+        dt = {"bf16": bf, "f32": f32}[dtn]
         # with a softcap, q is scaled by cap / 4 so that the scores spread to
         # about +-cap, where cap * tanh(s / cap) bends away from s
         q = torch.randn((B, S, H, D), generator=g, device=dev)
@@ -1159,61 +1214,278 @@ def check_ssd(torch, passes_ms: dict, labels=None):
     return rows
 
 
-def serve_reference_check(torch, arch: str, n_prompt: int):
-    """Phases 6 and 9: ``arch``'s SMOKE config in float32 on the card
+def recording_routes(calls: list, keep=lambda r, moe, params, x: r):
+    """A patch of ``models/moe.route`` that appends ``keep(routing, moe
+    config, router params, x)`` of each call to ``calls`` (the layer calls
+    route through its module)."""
+    from unittest import mock
+
+    from repro_torch.models import moe as MOE
+
+    route = MOE.route
+
+    def rec(params, moe, x):
+        r = route(params, moe, x)
+        calls.append(keep(r, moe, params, x))
+        return r
+
+    return mock.patch.object(MOE, "route", rec)
+
+
+def router_margins(torch, params, moe, x):
+    """Each token's gap between its k-th and (k+1)-th router probability
+    (the router's float32 product and softmax, as ``moe.route`` forms
+    them): how close its assignment came to a tie."""
+    probs = torch.softmax(x.float() @ params["w_router"], dim=-1)
+    top = torch.topk(probs, moe.top_k + 1, dim=-1).values
+    return top[..., moe.top_k - 1] - top[..., moe.top_k]
+
+
+# A MoE layer's choice of experts is discrete: where the card's and the
+# CPU's float32 sums (or an int8 code flipped between them) put a token's
+# k-th and (k+1)-th router probabilities on different sides of a tie, the
+# token's whole contribution moves from one expert's gradient to
+# another's, the runs' weights part, and later tokens route apart at
+# clearer margins. 16b's state limit then holds a MoE run only while its
+# assignments agree. So where the runs route apart, the first layer call
+# that does must do so at near ties of the CPU run (the k-th and (k+1)-th
+# router probabilities within MOE_FLIP_MARGIN), and both runs are made
+# again up to the last local step before that call (then one sync round):
+# that state is held to 16b's limits. A fault on the card moves the state
+# from the first step, before any token routes apart; the controls show
+# that the check refuses one (``MOE_ROUTER_FAULT``).
+MOE_FLIP_MARGIN = 1e-3
+# the MoE control: the router leaves' gradient 5% too large on the card,
+# under int8 Star (the run whose tokens route apart), a fault small
+# enough to flip near ties first
+MOE_ROUTER_FAULT = 1.05
+
+
+def recording_picks(torch, store: list):
+    """``recording_routes`` keeping, on the host, each call's experts and
+    each token's top-k margin (``router_margins``)."""
+    def keep(r, moe, params, x):
+        with torch.no_grad():
+            return (r.idx.cpu(),
+                    router_margins(torch, params, moe, x).cpu())
+
+    return recording_routes(store, keep)
+
+
+def picks_apart(torch, cfg, cpu, card, label) -> dict:
+    """Where two runs' MoE layer calls (``recording_picks``) chose
+    different experts: the calls, the first of them, the tokens, and the
+    largest CPU-run margin at such a token; ``explains`` when some token
+    was routed apart and every such token sat at a near tie."""
+    if cfg.moe is None:
+        return {"calls": 0, "explains": False}
+    if len(cpu) != len(card):
+        raise AssertionError(f"lm {label}: {len(cpu)} MoE calls on the CPU, "
+                             f"{len(card)} on the card")
+    calls, tokens, first, first_margin, worst = 0, 0, None, None, 0.0
+    for i, ((ia, ma), (ib, _)) in enumerate(zip(cpu, card)):
+        apart = (ia.sort(dim=-1).values != ib.sort(dim=-1).values).any(-1)
+        if apart.any():
+            calls += 1
+            tokens += int(apart.sum())
+            worst = max(worst, float(ma[apart].max()))
+            if first is None:
+                first, first_margin = i, float(ma[apart].max())
+    out = {"calls": calls, "of_calls": len(cpu), "tokens": tokens,
+           "first_call": first, "first_margin": first_margin,
+           "max_margin_apart": worst,
+           "explains": calls > 0 and first_margin < MOE_FLIP_MARGIN}
+    if not calls:
+        log(f"[lm-check] {cfg.name} {label}: the runs routed every token "
+            f"alike in all {len(cpu)} MoE layer calls")
+        return out
+    log(f"[lm-check] {cfg.name} {label}: the runs routed {tokens} "
+        f"token(s) apart in {calls} of {len(cpu)} MoE layer calls; the "
+        f"first such call ({first}) at a CPU-run top-{cfg.moe.top_k} margin "
+        f"of at most {first_margin:.3g} (a near tie: below "
+        f"{MOE_FLIP_MARGIN}), the later ones at up to {worst:.3g}")
+    return out
+
+
+# The int8 KV cache rounds k and v to codes, so where the card's and the
+# CPU's k or v differ by their float32 rounding (a few 1e-5 relative after
+# two layers), a code whose x/scale sits near a rounding tie can land one
+# step apart, and move that cache entry by a whole step (1/127 of the
+# row's largest). Such a code is allowed where each run's code is its own
+# x/scale rounded half to even (two such codes differ only where a tie
+# lies between the quotients), the codes are one step apart and the two
+# quotients within KV_GAP of a step of each other (set at about 3x the
+# 0.0146 read in PR 22's chip runs); the logits are then held on the
+# card's codes.
+KV_GAP = 5e-2
+
+
+def recording_quant(store: list, replay=None):
+    """A patch of ``models/attention._quant`` that appends each call's
+    (codes, scales, x/scale) on the host to ``store``; with ``replay`` (a
+    list of (codes, scales)), each call returns the next of those
+    instead, on the call's device."""
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+
+    quant = A._quant
+    queue = list(replay) if replay is not None else None
+
+    def rec(x):
+        q, s = quant(x)
+        store.append((q.cpu(), s.cpu(), (x.float() / s[..., None]).cpu()))
+        if queue is not None:
+            q, s = (t.to(x.device) for t in queue.pop(0))
+        return q, s
+
+    return mock.patch.object(A, "_quant", rec)
+
+
+def codes_apart(torch, cpu, card, label) -> dict:
+    """The int8 codes two runs' ``_quant`` calls made apart: how many, the
+    largest step between them, and the largest gap between the runs'
+    quotients x/scale at such a code; fails unless every code of each run
+    is its own quotient rounded half to even (clipped to ±127), and each
+    code apart is one step, its quotients within ``KV_GAP``."""
+    if len(cpu) != len(card) or not cpu:
+        raise AssertionError(f"{label}: {len(cpu)} quantisations on the CPU, "
+                             f"{len(card)} on the card")
+    apart, step, gap = 0, 0, 0.0
+    for (qa, _, xa), (qb, _, xb) in zip(cpu, card):
+        for q, x in ((qa, xa), (qb, xb)):
+            if not torch.equal(q.int(), x.round().clamp(-127, 127).int()):
+                raise AssertionError(f"{label}: a code is not its quotient "
+                                     f"rounded half to even")
+        d = qa.int() != qb.int()
+        if d.any():
+            apart += int(d.sum())
+            step = max(step, int((qa.int() - qb.int()).abs().max()))
+            gap = max(gap, float((xa[d] - xb[d]).abs().max()))
+    n = sum(q.numel() for q, _, _ in cpu)
+    log(f"[reference] {label}: {apart} of {n} int8 codes apart between the "
+        f"card and the CPU, at most {step} step apart, their quotients "
+        f"x/scale within {gap:.3g} of a step of each other (allowed: 1 "
+        f"step, {KV_GAP})")
+    if apart and not (step <= 1 and gap < KV_GAP):
+        raise AssertionError(f"{label}: int8 codes apart by more than "
+                             f"rounding's")
+    return {"codes_apart": apart, "codes": n, "code_step": step,
+            "quotient_gap": gap}
+
+
+def serve_reference_check(torch, arch: str, n_prompt: int,
+                          kv_quant: bool = False):
+    """Phases 6, 9 and 18a: ``arch``'s SMOKE config in float32 on the card
     against the CPU run (plain versions) on the same weights: an
     ``n_prompt``-token prompt through ``prefill``, then 8 decode steps fed
     the CPU run's tokens. gemma2-27b's 80-token prompt is longer than its
     window of 64; mamba2-2.7b's 100-token prompt ends in a short chunk
     (chunk 64). Max logit difference 1e-4: float32 on both sides (TF32
     off), sums in another order through two layers, logits at most 30
-    (gemma2, after the final softcap) or a few units (mamba2)."""
+    (gemma2, after the final softcap) or a few units (mamba2). A MoE
+    arch's expert assignment (experts, ranks, kept) must be equal on both
+    routes in every layer call; the smallest top-k router margin of the
+    CPU run is logged beside it."""
     import numpy as np
 
     from repro_torch.configs import get_arch
     from repro_torch.models import transformer as TF
     from repro_torch.utils.tree import tree_map
 
-    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32",
+                                             kv_quant=kv_quant)
     p_cpu = TF.init_params(cfg, seed=0, device="cpu")
     p_gpu = tree_map(lambda t: t.to("cuda:0"), p_cpu)
     prompt = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(1, n_prompt))).long()
     runs = {}
+
+    def run(dev, params, replay=None):
+        routes, quants = [], []
+        keep = lambda r, moe, p, x: (r, float(router_margins(
+            torch, p, moe, x).min()))
+        with recording_routes(routes, keep), \
+                recording_quant(quants, replay):
+            cache = TF.init_cache(cfg, 1, n_prompt + 16, device=dev)
+            logits, cache = TF.prefill(params, cfg, prompt.to(dev), cache)
+            steps = [logits[:, -1].cpu()]
+            toks = runs["cpu"]["toks"] if "cpu" in runs else []
+            for i in range(8):
+                if "cpu" not in runs:
+                    toks.append(torch.argmax(steps[-1], dim=-1)[:, None])
+                logits, cache = TF.decode_step(params, cfg, toks[i].to(dev),
+                                               cache)
+                steps.append(logits[:, -1].cpu())
+        return {"toks": toks, "logits": torch.stack(steps),
+                "routes": routes, "quants": quants}
+
     for dev, params in (("cpu", p_cpu), ("cuda:0", p_gpu)):
-        cache = TF.init_cache(cfg, 1, n_prompt + 16, device=dev)
-        logits, cache = TF.prefill(params, cfg, prompt.to(dev), cache)
-        steps = [logits[:, -1].cpu()]
-        toks = runs["cpu"]["toks"] if dev != "cpu" else []
-        for i in range(8):
-            if dev == "cpu":
-                toks.append(torch.argmax(steps[-1], dim=-1)[:, None])
-            logits, cache = TF.decode_step(params, cfg, toks[i].to(dev),
-                                           cache)
-            steps.append(logits[:, -1].cpu())
-        runs[dev] = {"toks": toks, "logits": torch.stack(steps)}
+        runs[dev] = run(dev, params)
     err = float((runs["cpu"]["logits"] - runs["cuda:0"]["logits"]).abs()
                 .max())
-    log(f"[reference] {arch} smoke f32, {n_prompt}-token prompt + 8 decode "
+    label = f"{arch}{' kv_quant' if kv_quant else ''}"
+    out = {"max_abs_err": err}
+    if kv_quant:
+        codes = codes_apart(torch, runs["cpu"]["quants"],
+                            runs["cuda:0"]["quants"], label)
+        out.update(codes)
+        if codes["codes_apart"]:
+            # the CPU again, on the card's codes: both then attend over the
+            # same cache, and the logits must meet the tolerance
+            replay = run("cpu", p_cpu, [q[:2] for q in
+                                        runs["cuda:0"]["quants"]])
+            out["max_abs_err_unreplayed"] = err
+            err = float((replay["logits"] - runs["cuda:0"]["logits"]).abs()
+                        .max())
+            out["max_abs_err"] = err
+            log(f"[reference] {label}: the CPU run on the card's codes: max "
+                f"|logit diff| {err:.3g} (without them {out['max_abs_err_unreplayed']:.3g})")
+    if cfg.moe is not None:
+        rc, rg = runs["cpu"]["routes"], runs["cuda:0"]["routes"]
+        equal = len(rc) == len(rg) > 0 and all(
+            torch.equal(getattr(a, f), getattr(b, f).cpu())
+            for (a, _), (b, _) in zip(rc, rg) for f in ("idx", "rank", "keep"))
+        margin = min(m for _, m in rc)
+        log(f"[reference] {label}: expert assignment (experts, ranks, kept) "
+            f"over {len(rc)} layer calls "
+            f"{'equal' if equal else 'DIFFERS'} on the card and the CPU; "
+            f"smallest top-{cfg.moe.top_k} router margin {margin:.3g}")
+        if not equal:
+            raise AssertionError(f"serve reference {label}: expert "
+                                 f"assignment differs")
+        out.update(assignment_equal=True, layer_calls=len(rc),
+                   min_router_margin=margin)
+    log(f"[reference] {label} smoke f32, {n_prompt}-token prompt + 8 decode "
         f"steps: card vs CPU max |logit diff| {err:.3g} (tol 1e-4)")
     if not err <= 1e-4:
-        raise AssertionError(f"serve reference {arch}: card vs CPU {err}")
-    return err
+        raise AssertionError(f"serve reference {label}: card vs CPU {err}")
+    return out
 
 
 # The two full-width serving cells: arch, slots, Poisson requests, the
 # long prompt's length and outputs, the kernel each prefill launches once per
 # layer, and whether a one-token prompt joins a used slot after the drain.
+# Phase 18's cells add a depth cut (``layers``), the slots' length
+# (``max_seq_len``, default 6,144) and the int8 KV cache (``kv_quant``).
 SERVE_CELLS = {
     "gemma2-27b": dict(n_slots=4, n_requests=6, long_len=4608, long_out=24,
                        kernel="flash_attention", one_token=False),
     "mamba2-2.7b": dict(n_slots=8, n_requests=12, long_len=4000, long_out=24,
                         kernel="ssd", one_token=True),
+    "deepseek-v2-236b": dict(n_slots=4, n_requests=6, long_len=3000,
+                             long_out=16, kernel="flash_attention",
+                             one_token=False, layers=4, max_seq_len=4096),
+    "gemma3-12b": dict(n_slots=4, n_requests=4, long_len=4608, long_out=16,
+                       kernel="flash_attention", one_token=False,
+                       kv_quant=True),
 }
 
 
-def serve_full_width(torch, arch: str):
-    """Phases 7 and 10: ``arch`` at full width behind ServeEngine."""
+def serve_full_width(torch, arch: str, extra=None):
+    """Phases 7, 10, 18b and 18c: ``arch`` at full width behind
+    ServeEngine. ``extra(torch, cfg, params, long_prompt, sched)``, where
+    given, adds its checks' results to the returned dict."""
     import numpy as np
 
     from repro_torch import kernels
@@ -1227,7 +1499,11 @@ def serve_full_width(torch, arch: str):
 
     cell = SERVE_CELLS[arch]
     dev = torch.device("cuda:0")
-    cfg = get_arch(arch)
+    cfg = get_arch(arch).replace(kv_quant=cell.get("kv_quant", False))
+    if cell.get("layers"):
+        log(f"[cut] {arch} serving: full width, depth cut to "
+            f"{cell['layers']} of {cfg.n_layers} layers")
+        cfg = cfg.replace(n_layers=cell["layers"])
     torch.cuda.reset_peak_memory_stats()
     t0 = time.monotonic()
     params = TF.init_params(cfg, seed=0, device=dev)
@@ -1237,7 +1513,8 @@ def serve_full_width(torch, arch: str):
         f" made on the card in {time.monotonic() - t0:.2f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
-    sched = SchedulerConfig(n_slots=cell["n_slots"], max_seq_len=6144)
+    sched = SchedulerConfig(n_slots=cell["n_slots"],
+                            max_seq_len=cell.get("max_seq_len", 6144))
     eng = ServeEngine(cfg, params, scheduler=sched)
     rate = 0.7 * sched.n_slots / eng.decode_step_s   # launch/serve's rule
     reqs = generate_requests(TrafficConfig(
@@ -1304,13 +1581,15 @@ def serve_full_width(torch, arch: str):
     del eng
     torch.cuda.empty_cache()
     step = time_serve_steps(torch, cfg, params, sched, long_prompt)
+    more = {} if extra is None else extra(torch, cfg, params, long_prompt,
+                                          sched)
     return {"arch": arch, "wall_s": wall, "tok_s": tokens / wall,
             "tokens": tokens, "n_prefills": report.n_prefills,
             "n_steps": report.n_steps, "peak_gb": peak / 1e9,
             "makespan_s": report.makespan_s,
             "modeled_tok_s": report.modeled_tok_s,
             "tokens_compared": compared, "tokens_total": total,
-            "launches": counts[kname], **step}
+            "launches": counts[kname], **step, **more}
 
 
 def hold_to_greedy(torch, arch, params, cfg, reqs, records, max_seq_len):
@@ -2722,17 +3001,43 @@ def lm_state_diff(torch, start, a, b) -> dict:
     return out
 
 
-def train_reference_check(torch, arch: str = "qwen3-14b") -> dict:
+def router_fault(torch):
+    """A patch of the SGD update that scales the router leaves' gradient
+    by ``MOE_ROUTER_FAULT`` before the update kernel reads it."""
+    from unittest import mock
+
+    from repro_torch.optim import sgd as SGD
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    update = SGD.tree_sgd_update_
+
+    def wrong(params, mu, grads, **kw):
+        for path, g in tree_flatten_with_path(grads)[0]:
+            if "w_router" in path:
+                g.mul_(MOE_ROUTER_FAULT)
+        return update(params, mu, grads, **kw)
+
+    return mock.patch.object(SGD, "tree_sgd_update_", wrong)
+
+
+def train_reference_check(torch, arch: str = "qwen3-14b",
+                          runs=tuple(LM_CHECK_RUNS),
+                          control: bool = True) -> dict:
     """Phase 16b (17b for mamba2-2.7b): ``arch``'s SMOKE config (float32)
     trained on the card against the CPU from the same state, on the same
     batches and sync draws (``HostKey``), under dense Star, int8 Star and
     the two-level round (2 pods, dense + int8): stage results and ledgers
     equal, mean losses and each leaf of the final state (the parameters'
-    updates, the moments) within ``LM_CHECK_RUNS``' tolerances, the
-    launches of the path. Then a control: the dense run on the card again
-    with the output of the layer's autograd Function — flash attention's,
-    or the SSD scan's — detached from the graph (the fault such a Function
-    repairs), which the state check must refuse."""
+    updates, the moments) within ``LM_CHECK_RUNS``' tolerances (for a MoE
+    arch whose runs route apart, the state before they do: see
+    ``MOE_FLIP_MARGIN``), the launches of the path. Then a control: the
+    dense run on the card again with the output of the layer's autograd
+    Function — flash attention's, or the SSD scan's — detached from the
+    graph (the fault such a Function repairs), which the state check must
+    refuse; a MoE arch adds a second, the int8 run with the router's
+    gradient off (``router_fault``). Phase 18a runs ``runs`` (dense and
+    int8 Star), with the controls for a MoE arch only."""
+    import contextlib
     from unittest import mock
 
     from repro_torch import kernels
@@ -2748,44 +3053,90 @@ def train_reference_check(torch, arch: str = "qwen3-14b") -> dict:
     c = LM_CHECK
     base = LS.init_state(0, cfg, c["clients"], device="cpu")
 
-    def run(dev, tcfg):
+    def run(dev, tcfg, picks=None, max_iters=None):
         d = torch.device(dev)
         state = {"params": tree_map(lambda t: t.to(d, copy=True),
                                     base["params"]),
                  "opt": tree_map(lambda t: t.to(d, copy=True), base["opt"]),
                  "step": 0}
-        return lm_train(torch, cfg, d, state, tcfg, clients=c["clients"],
-                        batch=c["batch"], seq=c["seq"],
-                        rng=HostKey(TorchKey(0), d))
+        with recording_picks(torch, picks if picks is not None else []):
+            return lm_train(torch, cfg, d, state, tcfg,
+                            clients=c["clients"], batch=c["batch"],
+                            seq=c["seq"], rng=HostKey(TorchKey(0), d),
+                            max_iters=max_iters)
 
     def tcfg_of(kw):
         return TrainConfig(algo="stl_sc", eta1=c["eta1"], T1=c["T1"],
                            k1=c["k1"], n_stages=c["stages"], **kw)
 
-    launches, readings, cpu_dense = {}, {}, None
-    for label, (kw, tol, state_tol) in LM_CHECK_RUNS.items():
+    def held(label, tcfg, state_tol, cpu, card, picks, fault):
+        """16b's state check of ``card`` against ``cpu`` (``fault`` the
+        card run's patch): (passed, reading)."""
+        diff = lm_state_diff(torch, base, card.state, cpu.state)
+        ok = diff["params"] <= state_tol and diff["opt"] <= state_tol
+        flips = picks_apart(torch, cfg, picks["cpu"], picks["card"], label)
+        if not flips["calls"]:
+            return ok, diff
+        diff.update(routing=flips)
+        if not flips["explains"]:
+            return False, diff
+        per_step, rest = divmod(len(picks["cpu"]), cpu.iters_total)
+        if rest:
+            raise AssertionError(f"lm {label}: {len(picks['cpu'])} MoE "
+                                 f"calls over {cpu.iters_total} steps")
+        n = flips["first_call"] // per_step
+        pre, pre_ok = {}, False
+        if n:
+            again = {"cpu": [], "card": []}
+            a = run("cpu", tcfg, again["cpu"], max_iters=n)
+            with fault():
+                b = run("cuda:0", tcfg, again["card"], max_iters=n)
+            torch.cuda.synchronize()
+            pre = lm_state_diff(torch, base, b.state, a.state)
+            same = len(again["cpu"]) == len(again["card"]) and all(
+                torch.equal(x.sort(dim=-1).values, y.sort(dim=-1).values)
+                for (x, _), (y, _) in zip(again["cpu"], again["card"]))
+            pre_ok = same and pre["params"] <= state_tol \
+                and pre["opt"] <= state_tol
+            pre["routes_equal"] = same
+        diff["before_apart"] = dict(steps=n, **pre)
+        log(f"[lm-check] {cfg.name} {label}: both runs again to step {n}, "
+            f"the last before the first routed-apart call"
+            + (f" (routes {'equal' if pre['routes_equal'] else 'APART'}): "
+               f"updates {pre['params']:.3g} ({pre['params_leaf']}), "
+               f"moments {pre['opt']:.3g} ({pre['opt_leaf']}) of their "
+               f"norm (tol {state_tol})" if n else
+               ": no step before it to hold")
+            + f": {'held' if pre_ok else 'refused'}")
+        return pre_ok, diff
+
+    launches, readings, cpus = {}, {}, {}
+    for label in runs:
+        kw, tol, state_tol = LM_CHECK_RUNS[label]
         tcfg = tcfg_of(kw)
-        cpu = run("cpu", tcfg)
+        picks = {"cpu": [], "card": []}
+        cpu = run("cpu", tcfg, picks["cpu"])
         kernels.reset_launch_counts()
-        card = run("cuda:0", tcfg)
+        card = run("cuda:0", tcfg, picks["card"])
         torch.cuda.synchronize()
         counts = kernels.launch_counts()
         shape = [(r.stage, r.k, r.iters, r.rounds) for r in cpu.results]
         rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
                   for a, b in zip(card.results, cpu.results))
-        diff = lm_state_diff(torch, base, card.state, cpu.state)
+        ok, diff = held(label, tcfg, state_tol, cpu, card, picks,
+                        contextlib.nullcontext)
         log(f"[lm-check] {cfg.name} {label}: stages {shape}, mean losses card "
             f"{[round(r.mean_loss, 6) for r in card.results]} vs CPU "
             f"{[round(r.mean_loss, 6) for r in cpu.results]}, max rel diff "
             f"{rel:.3g} (tol {tol}); final state, card against CPU: "
             f"updates {diff['params']:.3g} ({diff['params_leaf']}), moments "
             f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
-            f"{state_tol}); ledger {card.comm_bytes_total} B, launches "
-            f"{counts}")
+            f"{state_tol}{', or the state before the runs route apart' if 'routing' in diff else ''}); "
+            f"ledger {card.comm_bytes_total} B, launches {counts}")
         if [(r.stage, r.k, r.iters, r.rounds) for r in card.results] != shape \
                 or not rel <= tol:
             raise AssertionError(f"lm {label}: card against CPU: {rel}")
-        if not (diff["params"] <= state_tol and diff["opt"] <= state_tol):
+        if not ok:
             raise AssertionError(f"lm {label}: final state, card against "
                                  f"CPU: {diff}")
         if (card.comm_bytes_total, card.comm_time_s, card.leaf_ledger) != \
@@ -2797,14 +3148,15 @@ def train_reference_check(torch, arch: str = "qwen3-14b") -> dict:
         expect_launches(f"lm {label}", counts, want)
         launches[label] = counts
         readings[label] = dict(loss_rel=rel, **diff)
-        if label == "dense star":
-            cpu_dense = cpu
+        cpus[label] = (cpu, picks["cpu"])
         del card
     torch.cuda.empty_cache()
+    if not control:
+        return {"launches": launches, "readings": readings}
 
-    # the control: a layer's Function output without a grad_fn (the fault
-    # the autograd Functions repair)
-    kw, tol, state_tol = LM_CHECK_RUNS["dense star"]
+    # the controls, each a fault on the card that the state check must
+    # refuse: a layer's Function output without a grad_fn (the fault the
+    # autograd Functions repair); for a MoE arch, the router's gradient off
     if "M" in cfg.layer_kinds():
         fn, what = SO.SSD, "ssd"
         apply = fn.apply
@@ -2813,24 +3165,33 @@ def train_reference_check(torch, arch: str = "qwen3-14b") -> dict:
         fn, what = FO.FlashAttention, "flash"
         apply = fn.apply
         detached = lambda *a: apply(*a).detach()
-    with mock.patch.object(fn, "apply", detached):
-        card = run("cuda:0", tcfg_of(kw))
-    torch.cuda.synchronize()
-    rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
-              for a, b in zip(card.results, cpu_dense.results))
-    diff = lm_state_diff(torch, base, card.state, cpu_dense.state)
-    log(f"[lm-check] {cfg.name} control, {what} output detached (dense "
-        f"star): mean "
-        f"losses max rel diff {rel:.3g} (tol {tol}), final state: updates "
-        f"{diff['params']:.3g} ({diff['params_leaf']}), moments "
-        f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
-        f"{state_tol}): refused")
-    if diff["params"] <= state_tol and diff["opt"] <= state_tol:
-        raise AssertionError(f"lm control: a detached {what} output passes "
-                             f"the state check: {diff}")
-    readings[f"control {what} detached"] = dict(loss_rel=rel, **diff)
-    del card
-    torch.cuda.empty_cache()
+    controls = [(f"{what} output detached", "dense star",
+                 lambda: mock.patch.object(fn, "apply", detached))]
+    if cfg.moe is not None:
+        controls.append((f"router gradient x{MOE_ROUTER_FAULT}", "int8 star",
+                         lambda: router_fault(torch)))
+    for what, label, fault in controls:
+        kw, tol, state_tol = LM_CHECK_RUNS[label]
+        cpu, cpu_picks = cpus[label]
+        picks = {"cpu": cpu_picks, "card": []}
+        with fault():
+            card = run("cuda:0", tcfg_of(kw), picks["card"])
+        torch.cuda.synchronize()
+        rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
+                  for a, b in zip(card.results, cpu.results))
+        ok, diff = held(f"control {what}", tcfg_of(kw), state_tol, cpu,
+                        card, picks, fault)
+        log(f"[lm-check] {cfg.name} control, {what} ({label}): mean losses "
+            f"max rel diff {rel:.3g} (tol {tol}), final state: updates "
+            f"{diff['params']:.3g} ({diff['params_leaf']}), moments "
+            f"{diff['opt']:.3g} ({diff['opt_leaf']}) of their norm (tol "
+            f"{state_tol}): {'PASSED' if ok else 'refused'}")
+        if ok:
+            raise AssertionError(f"lm control: {what} passes the state "
+                                 f"check: {diff}")
+        readings[f"control {what}"] = dict(loss_rel=rel, **diff)
+        del card
+        torch.cuda.empty_cache()
     return {"launches": launches, "readings": readings}
 
 
@@ -3398,6 +3759,538 @@ def run_mamba2_phase(torch) -> dict:
     return out
 
 
+# phase 18: MoE and MLA. 18a's flash cases beside phase 5's: gemma3-12b's
+# local layer (window 1,024, 16/8 heads of 256) at its 4,608-token prefill
+# and phi3.5-moe's training layer (2 sequences of 1,024 tokens, 32/8 heads
+# of 128); and the zero-padded MLA calls at deepseek-v2's layer (128 heads,
+# q/k 128 + 64 → 256, v 128 → 256) and minicpm3-4b's (40 heads, 64 + 32 →
+# 128, v 64 → 128) over 4,096 tokens, bf16
+MOE_FLASH_CASES = {
+    "gemma3 local": (1, 4608, 16, 8, 256, "bf16", 1024, None),
+    "phi3.5 train": (2, 1024, 32, 8, 128, "bf16", None, None),
+}
+MLA_FLASH_CASES = {"deepseek-v2 mla": (1, 4096, 128, 192, 128),
+                   "minicpm3 mla": (1, 4096, 40, 96, 64)}
+# 18a's SMOKE checks: the serving path on the card against the CPU (80-token
+# prompts past the 64-token windows), then 16b's training check (dense and
+# int8 Star) on the two new trainable kinds of layer
+MOE_SERVE_REFS = (("gemma3-12b", False), ("minicpm3-4b", False),
+                  ("phi3.5-moe-42b-a6.6b", False), ("deepseek-v2-236b", False),
+                  ("gemma2-27b", True))
+MOE_TRAIN_REFS = ("phi3.5-moe-42b-a6.6b", "minicpm3-4b")
+# 18c: the int8 cache's first decode step against the bf16 cache's, on one
+# prompt past the window: the reference's bound (tests/test_variants.py)
+KV_QUANT_TOL, KV_QUANT_PROMPT = 2e-2, 2000
+# 18d: phi3.5-moe at full width, its depth cut to 2 of 32 layers, through
+# launch/train.main; 16c's schedule and rate (T1 16, k1 4), 2 stages, the
+# second cut at 16 of its 32 local steps (32 in all); the profiler traces
+# 2 train steps after a warm-up one
+PHI35_TRAIN = {"layers": 2, "clients": 2, "batch": 2, "seq": 1024,
+               "T1": 16, "k1": 4.0, "stages": 2, "steps": 32, "eta1": 0.03,
+               "profile_calls": 2}
+
+
+def check_mla_flash(torch) -> dict:
+    """Phase 18a: the zero-padded MLA call (``models/attention.
+    _padded_flash``: q, k and v padded to the kernel's head dim, the scale
+    of the unpadded q, the output cut back to v's dim) on the card against
+    the plain attention on the unpadded dims (``attention.attend``), held
+    to ref.py's bf16 tolerance as phase 5 holds flash. Timed like phase 5:
+    the call (its padding copies included) and the kernel alone on the
+    padded inputs, beside the unpadded work's bound (2·(Dqk + Dv) FLOPs a
+    visible pair and head) and the padded work's, the plain version and
+    SDPA on the unpadded dims (q/k and v of different widths)."""
+    from repro_torch.kernels.flash_attention.kernel import flash_attention
+    from repro_torch.kernels.flash_attention.ref import bf16_mismatch
+    from repro_torch.launch.flops import _attn_pairs
+    from repro_torch.models import attention as A
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf = torch.bfloat16
+    rows = {}
+    for label, (B, S, H, dqk, dv) in MLA_FLASH_CASES.items():
+        q, k = (torch.randn((B, S, H, dqk), generator=g, device=dev).to(bf)
+                for _ in range(2))
+        v = torch.randn((B, S, H, dv), generator=g, device=dev).to(bf)
+        D = next(d for d in A.HEAD_DIMS if d >= max(dqk, dv))
+        scale = 1.0 / math.sqrt(dqk)
+        pos = torch.arange(S, device=dev)
+        bias = A._mask_bias(pos, pos, None)
+        call = lambda: A._padded_flash(q, k, v, D, window=None, softcap=None,
+                                       scale=scale)
+        plain = lambda: A.attend(q, k, v, bias, None, scale)
+        out = call()
+        ref = A.attend(q.float(), k.float(), v.float(), bias, None, scale)
+        torch.cuda.synchronize()
+        err, elem, row = bf16_mismatch(out, ref)
+        if not (elem <= 1.0 and row <= 1.0 and out.shape == v.shape):
+            raise AssertionError(f"padded MLA flash {label}: max err {err}, "
+                                 f"{elem} / {row} of tol")
+        del out
+        pad = lambda t: torch.nn.functional.pad(t, (0, D - t.shape[-1]))
+        qp, kp, vp = pad(q), pad(k), pad(v)
+        kern_ms = device_ms(torch, lambda: flash_attention(
+            qp, kp, vp, scale=scale), batch=2, reps=10)
+        call_ms_ = device_ms(torch, call, batch=2, reps=10)
+        plain_ms = device_ms(torch, plain, batch=1, reps=3)
+        lib = lib_err = None
+        lib_fn = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            is_causal=True, scale=scale).transpose(1, 2)
+        try:
+            lib_out = lib_fn()
+        except RuntimeError as e:   # a library limit, logged: not the port
+            log(f"[mla-flash] SDPA takes no {dqk}/{dv} head dims here: {e}")
+        else:
+            lib_err, lib_elem, lib_row = bf16_mismatch(lib_out, ref)
+            if not (lib_elem <= 1.0 and lib_row <= 1.0):
+                raise AssertionError(f"SDPA {label}: max err {lib_err}")
+            del lib_out
+            lib = device_ms(torch, lib_fn, batch=2, reps=10)
+        pairs = _attn_pairs(S, None, "prefill")
+        work = 2.0 * B * H * pairs * (dqk + dv)
+        padded = 4.0 * B * H * pairs * D
+        n_bytes = (q.numel() + k.numel() + 2 * v.numel()) * 2
+        bms, by = bound_ms(n_bytes, work, BF16_FLOPS)
+        pms = padded / BF16_FLOPS * 1e3
+        rows[label] = {"shape": [B, S, H, dqk, dv], "padded_to": D,
+                       "ms": call_ms_, "kernel_ms": kern_ms,
+                       "plain_ms": plain_ms, "library_ms": lib,
+                       "bound_ms": bms, "bound_by": by,
+                       "padded_bound_ms": pms, "max_abs_err": err,
+                       "elem_of_tol": elem, "row_of_tol": row}
+        log(f"[mla-flash] {label} {(B, S, H)} q/k {dqk} v {dv} padded to "
+            f"{D}: the call {call_ms_:.4f} ms (the kernel alone "
+            f"{kern_ms:.4f} ms), plain {plain_ms:.3f} ms, SDPA "
+            f"{'-' if lib is None else f'{lib:.4f} ms'}; unpadded work's "
+            f"bound {bms:.4f} ms ({by}), padded work's {pms:.4f} ms; max err "
+            f"{err:.3g}, elementwise {elem:.3f}, per-row {row:.3f} of tol")
+        del q, k, v, qp, kp, vp, ref
+        torch.cuda.empty_cache()
+    return rows
+
+
+# 18b's and 18c's decode profile: device ms a step inside host ranges that
+# the harness opens around each layer's attention (and the int8 cache's
+# dequantisation inside it), its MoE layer and its dense MLP, beside the
+# model's own ``moe.*`` ranges
+DECODE_RANGES = {"attention": "layer.attention",
+                 "attention.dequant": "layer.attention.dequant",
+                 "moe": "layer.moe", "mlp": "layer.mlp",
+                 "moe.route": "moe.route", "moe.dispatch": "moe.dispatch",
+                 "moe.experts": "moe.experts", "moe.combine": "moe.combine"}
+DECODE_PROFILE_STEPS = 4
+
+
+def layer_ranges(torch):
+    """Patches (one context) that open the ``DECODE_RANGES`` ranges of
+    the layer's parts around ``attention.apply_attention``,
+    ``attention._dequant``, ``moe.apply_moe`` and the transformer's dense
+    ``apply_mlp``."""
+    from contextlib import ExitStack
+    from unittest import mock
+
+    from repro_torch.models import attention as A
+    from repro_torch.models import moe as MOE
+    from repro_torch.models import transformer as TF
+
+    def ranged(fn, name):
+        def call(*a, **kw):
+            with torch.profiler.record_function(name):
+                return fn(*a, **kw)
+        return call
+
+    stack = ExitStack()
+    for mod, attr, key in ((A, "apply_attention", "attention"),
+                           (A, "_dequant", "attention.dequant"),
+                           (MOE, "apply_moe", "moe"), (TF, "apply_mlp", "mlp")):
+        stack.enter_context(mock.patch.object(
+            mod, attr, ranged(getattr(mod, attr), DECODE_RANGES[key])))
+    return stack
+
+
+def profile_decode(torch, cfg, params, sched, long_prompt) -> dict:
+    """torch.profiler over ``DECODE_PROFILE_STEPS`` full-width decode
+    steps of ``sched.n_slots`` slots, each slot after a 512-token prefill
+    of the long prompt, one step first as a warm-up: device ms a step in
+    each ``DECODE_RANGES`` range and outside the layers' parts
+    (``other``: embedding, norms, the head), the kernels a step, and the
+    share of the wall under the profiler in which a kernel ran
+    (``busy_union_us``); the wall alone where no device event was traced."""
+    from repro_torch.models import transformer as TF
+
+    dev = torch.device("cuda:0")
+    n = DECODE_PROFILE_STEPS
+    stacked = TF.init_cache(cfg, sched.n_slots, sched.max_seq_len, device=dev)
+    prompt = torch.as_tensor(long_prompt[None, :512], dtype=torch.long,
+                             device=dev)
+    toks = torch.zeros((sched.n_slots, 1), dtype=torch.long, device=dev)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.no_grad():
+        for slot in range(sched.n_slots):
+            TF.prefill(params, cfg, prompt,
+                       TF.cache_rows(stacked, slot, slot + 1))
+        TF.decode_step(params, cfg, toks, stacked)
+        torch.cuda.synchronize()
+        with layer_ranges(torch), \
+                torch.profiler.profile(activities=acts) as prof:
+            t0 = time.monotonic()
+            for _ in range(n):
+                TF.decode_step(params, cfg, toks, stacked)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    del stacked
+    torch.cuda.empty_cache()
+    out = {"steps": n, "wall_ms_per_step": wall * 1e3 / n}
+    res = device_ms_by_kind(torch, prof, n, {}, DECODE_RANGES)
+    if res is None:
+        log(f"[profile] {cfg.name} decode: {wall * 1e3 / n:.2f} ms a step "
+            f"under the profiler; device time not measured (no CUDA events "
+            f"traced)")
+        return out
+    ms = res["by_kind_ms_per_step"]
+    ms["other"] = res["kernel_ms_per_step"] - sum(
+        ms[k] for k in ("attention", "moe", "mlp"))
+    att = [e for e in prof.events() if e.name == DECODE_RANGES["attention"]]
+    traced = sum(1 for e in att if e.device_time_total > 0)
+    busy = busy_union_us(torch, prof) / (wall * 1e6)
+    out.update(kernels_per_step=res["kernels_per_step"],
+               kernel_ms_per_step=res["kernel_ms_per_step"],
+               ms_per_step_by_range=ms, busy_pct=100 * busy,
+               attention_calls_traced=[traced, len(att)])
+    log(f"[profile] {cfg.name} decode, {sched.n_slots} slots, {n} steps: "
+        f"{wall * 1e3 / n:.2f} ms a step under the profiler, "
+        f"{res['kernels_per_step']:.0f} kernels and "
+        f"{res['kernel_ms_per_step']:.3f} ms of device time a step, a kernel "
+        f"running {100 * busy:.1f}% of the wall; device ms a step by range: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; device events on {traced} of {len(att)} attention calls")
+    for line in res["top"]:
+        log(f"[profile]   {line}")
+    return out
+
+
+def deepseek_serve_extra(torch, cfg, params, long_prompt, sched) -> dict:
+    """18b's extra readings: the prefill and decode-step bounds the
+    serving engine prices (``launch/flops.py`` through ``DeviceModel``:
+    a decode step reads every expert's weights, as the capacity buffers
+    do), the share of assignments capacity dropped at the long prompt's
+    prefill, layer by layer, and the decode profile
+    (``profile_decode``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import DeviceModel
+
+    dm = DeviceModel()
+    n_long = len(long_prompt)
+    bounds = {f"prefill_{n}_bound_ms": dm.step_time_s(
+        cfg, ShapeConfig("p", n, 1, "prefill")) * 1e3 for n in (512, n_long)}
+    bounds["decode_step_bound_ms"] = dm.step_time_s(
+        cfg, ShapeConfig("d", sched.max_seq_len, sched.n_slots,
+                         "decode")) * 1e3
+    routes = []
+    dev = torch.device("cuda:0")
+    with torch.no_grad(), recording_routes(routes):
+        cache = TF.init_cache(cfg, 1, n_long, device=dev)
+        TF.prefill(params, cfg, torch.as_tensor(long_prompt[None],
+                                                dtype=torch.long, device=dev),
+                   cache)
+    dropped = [float((~r.keep).float().mean()) for r in routes]
+    del cache, routes
+    torch.cuda.empty_cache()
+    log(f"[serve] {cfg.name}: bounds (launch/flops via DeviceModel) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bounds.items())
+        + f"; assignments dropped by capacity at the {n_long}-token "
+        f"prefill, by MoE layer: {[round(d, 4) for d in dropped]}")
+    return {**bounds, "dropped_share": dropped,
+            "decode_profile": profile_decode(torch, cfg, params, sched,
+                                             long_prompt)}
+
+
+def gemma3_serve_extra(torch, cfg, params, long_prompt, sched) -> dict:
+    """18c's extra readings: one prompt of ``KV_QUANT_PROMPT`` tokens (past
+    the 1,024-token window) through prefill and one decode step with the
+    int8 cache and with the bf16 cache on the same params: the first
+    decode step's logits within ``KV_QUANT_TOL`` of the bf16 run's
+    largest; the engine's caches' bytes, int8 against bf16; and the
+    decode profile (``profile_decode``)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import transformer as TF
+
+    dev = torch.device("cuda:0")
+    prompt = torch.as_tensor(long_prompt[None, :KV_QUANT_PROMPT],
+                             dtype=torch.long, device=dev)
+    firsts = []
+    with torch.no_grad():
+        for quant in (True, False):
+            c = cfg.replace(kv_quant=quant)
+            cache = TF.init_cache(c, 1, KV_QUANT_PROMPT + 8, device=dev)
+            logits, cache = TF.prefill(params, c, prompt, cache)
+            tok = torch.argmax(logits[:, -1:], dim=-1)
+            del logits
+            logits, _ = TF.decode_step(params, c, tok, cache)
+            firsts.append(logits.float())
+            del cache, logits
+    rel = float((firsts[0] - firsts[1]).abs().max() / firsts[1].abs().max())
+
+    def cache_bytes(quant):
+        c = cfg.replace(kv_quant=quant)
+        return sum(t.numel() * t.element_size() for kind in c.layer_kinds()
+                   for t in A.init_attention_cache(
+                       c, kind == "L", sched.n_slots, sched.max_seq_len,
+                       torch.bfloat16, device="meta").values())
+
+    q8, b16 = cache_bytes(True), cache_bytes(False)
+    log(f"[serve] {cfg.name} int8 KV cache: the first decode step after a "
+        f"{KV_QUANT_PROMPT}-token prompt within {rel:.3g} of the bf16 "
+        f"cache's largest logit (tol {KV_QUANT_TOL}); the engine's caches "
+        f"({sched.n_slots} slots of {sched.max_seq_len}) {q8 / 1e9:.3f} GB "
+        f"int8 + float32 scales against {b16 / 1e9:.3f} GB bf16 "
+        f"({q8 / b16:.3f}x)")
+    if not rel < KV_QUANT_TOL:
+        raise AssertionError(f"gemma3 int8 KV cache: {rel} off the bf16 "
+                             f"cache's logits")
+    return {"kv_quant_rel": rel, "cache_bytes_int8": q8,
+            "cache_bytes_bf16": b16,
+            "decode_profile": profile_decode(torch, cfg, params, sched,
+                                             long_prompt)}
+
+
+def moe_step_work(cfg, q) -> dict:
+    """The least work of one local step of 18d from the active parameters
+    (``launch/flops.count_params``: attention, router, the top-k experts):
+    the GEMMs' forward and backward (6 FLOPs an active matmul parameter a
+    token) and the layers' remat forward (2), and attention as 16c counts
+    it (the flash forward twice, the backward's 10·D a pair)."""
+    from repro_torch.launch.flops import count_params
+    from repro_torch.models.transformer import padded_vocab
+
+    _, active = count_params(cfg)
+    layers = active - cfg.d_model * padded_vocab(cfg)
+    tokens = q["clients"] * q["batch"] * q["seq"]
+    att = cfg.attention
+    pairs = q["seq"] * (q["seq"] + 1) // 2
+    gemm = tokens * (6 * active + 2 * layers)
+    attn = (q["clients"] * q["batch"] * cfg.n_layers * att.n_heads
+            * att.head_dim * pairs * (4 + 4 + 10))
+    return {"gemm_flops": gemm, "attn_flops": attn,
+            "bound_ms": (gemm + attn) / BF16_FLOPS * 1e3}
+
+
+def range_device_ms(torch, prof, names, n: int, outside=None) -> float:
+    """Device ms a step of the kernels launched inside the host ranges
+    named in ``names`` (record_function ranges, or the autograd engine's
+    ``evaluate_function`` ranges of backward nodes), leaving out those
+    nested in a range named ``outside``."""
+    cuda = torch.autograd.DeviceType.CUDA
+    total = 0.0
+    for e in prof.events():
+        if e.device_type == cuda or e.name not in names:
+            continue
+        p = e.cpu_parent
+        while p is not None and p.name != outside:
+            p = p.cpu_parent
+        if p is None:
+            total += e.device_time_total
+    return total / 1e3 / n
+
+
+def run_phi35_training(torch, tmp: Path) -> dict:
+    """Phase 18d: phi3.5-moe at full width (d_model 4,096, 32/8 heads of
+    128, 16 experts x 6,400 top-2, vocab 32,064, bf16, seed 0), depth cut
+    to 2 of 32 layers, through ``launch/train.main`` with ``--profile
+    --profile-dir --profile-calls 2``: 2 clients, 2 sequences of 1,024
+    tokens a client a step, stl_sc eta1 0.03, k1 4, T1 16, 2 stages cut at
+    32 local steps (16 + 16), dense Star. The loss finite and its last stage's mean
+    below its first's, the aux term at the end, the launches (flash 8 and
+    the fused update 4 a step: the bf16 leaves and the float32 routers
+    are two type groups), the ledger, ms a step against its bound
+    (``moe_step_work``), peak memory, device ms a step by kind over the
+    profiler's window (GEMMs, the MoE ranges, flash, the plain attention
+    backward, the update); then one client's fused update at the trained
+    state as 16c checks it."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    q = PHI35_TRAIN
+    arch = "phi3.5-moe-42b-a6.6b"
+    full = get_arch(arch)
+    cfg = full.replace(n_layers=q["layers"])
+    log(f"[cut] phase 18d: {arch} at full width, depth cut to "
+        f"{q['layers']} of {full.n_layers} layers; {q['stages']} stl_sc "
+        f"stages cut at {q['steps']} local steps (the second at half)")
+    prof_dir = tmp / "phi35_prof"
+    argv = ["--arch", arch, "--layers", str(q["layers"]),
+            "--clients", str(q["clients"]), "--batch", str(q["batch"]),
+            "--seq", str(q["seq"]), "--algo", "stl_sc",
+            "--eta1", str(q["eta1"]), "--T1", str(q["T1"]),
+            "--k1", str(q["k1"]), "--stages", str(q["stages"]),
+            "--steps", str(q["steps"]), "--profile", "--profile-dir",
+            str(prof_dir), "--profile-calls", str(q["profile_calls"])]
+    log(f"[moe-train] launch.train.main {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    ds = TT.main(argv)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = ds.profile
+    steps = [r for r in prof.records if r.name == "train_step"]
+    untraced = [r.measured_s for r in steps[1:] if not r.attrs.get("traced")]
+    ms_step = statistics.median(untraced) * 1e3
+    work = moe_step_work(cfg, q)
+    losses = [r.mean_loss for r in ds.results]
+    n_params = sum(t[0].numel() for t in tree_leaves(ds.state["params"]))
+    per_client = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(ds.state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [ds.state["params"], ds.state["opt"]])) / 1e9
+    # the aux term at the end: client 0 on one batch, without grad
+    dev = torch.device("cuda:0")
+    batch = next(synthetic_batches(cfg, q["clients"], q["batch"], q["seq"],
+                                   seed=3, device=dev))
+    with torch.no_grad():
+        _, aux = TF.forward(TF.layer_views(tree_map(
+            lambda t: t[0], ds.state["params"]), cfg), cfg,
+            batch["tokens"][0])
+    aux = float(aux)
+    del batch
+    log(f"[moe-train] {arch}, {cfg.n_layers} layers: {n_params} parameters "
+        f"a client, state {state_gb:.2f} GB; {ds.iters_total} local steps, "
+        f"{ds.rounds_total} rounds; {ms_step:.2f} ms a step (median of "
+        f"{len(untraced)} untraced steps; the first "
+        f"{steps[0].measured_s * 1e3:.1f} ms) against a "
+        f"{work['bound_ms']:.2f} ms bound ({work['gemm_flops'] / 1e12:.2f} "
+        f"TFLOP of active GEMMs, {work['attn_flops'] / 1e12:.3f} TFLOP of "
+        f"attention at 989 TFLOP/s); eta1 {q['eta1']}; stage mean losses "
+        f"{[round(v, 4) for v in losses]} (the load-balance aux of client "
+        f"0's last state {aux:.5f}, in the loss); peak memory "
+        f"{peak_gb:.2f} GB; comm bytes {ds.comm_bytes_total}; launches "
+        f"{counts}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0] or not math.isfinite(aux):
+        raise AssertionError(f"phi3.5 training: stage losses {losses}, aux "
+                             f"{aux}")
+    if ds.comm_bytes_total != ds.rounds_total * q["clients"] * per_client:
+        raise AssertionError(f"phi3.5 training: ledger {ds.comm_bytes_total}")
+    want = lm_launches(cfg, ds, q["clients"], 0)
+    if want["flash_attention"] != 8 * ds.iters_total or \
+            want["fused_sgd_update"] != 4 * ds.iters_total:
+        raise AssertionError(f"phi3.5 training: the path's launches {want} "
+                             f"are not flash 8 and the update 4 a step")
+    expect_launches("phi3.5 training", counts, want)
+    out = {"params_per_client": n_params, "state_gb": state_gb,
+           "iters": ds.iters_total, "rounds": ds.rounds_total,
+           "ms_per_step": ms_step,
+           "first_step_ms": steps[0].measured_s * 1e3, **work,
+           "eta1": q["eta1"], "stage_losses": losses, "aux": aux,
+           "peak_gb": peak_gb, "comm_bytes": ds.comm_bytes_total,
+           "launches": counts, "skew_table": prof.skew_table()}
+    n_traced = sum(1 for r in prof.records if r.attrs.get("traced")
+                   and r.name == "train_step")
+    kinds = device_ms_by_kind(
+        torch, prof.profiler, n_traced,
+        {"gemm": GEMM_KERNELS, "flash_forward": ("flash_fwd",),
+         "fused_update": ("fused_sgd_update",),
+         "loss_log_softmax": ("LogSoftMax",)},
+        {"attention_backward": "flash_attention.backward",
+         "moe_route_fwd": "moe.route", "moe_dispatch_fwd": "moe.dispatch",
+         "moe_experts_fwd": "moe.experts", "moe_combine_fwd": "moe.combine"})
+    if kinds is None:
+        log("[moe-train] device time by kind not measured (no CUDA events "
+            "traced)")
+    else:
+        node = "autograd::engine::evaluate_function: "
+        by = kinds["by_kind_ms_per_step"]
+        # the MoE layer's backward: its bmm nodes (the plain attention
+        # backward's products, nested in its range, left out), the
+        # dispatch's index_put and the combine's gather
+        by["moe_experts_bwd"] = range_device_ms(
+            torch, prof.profiler, {node + "BmmBackward0"}, n_traced,
+            outside="flash_attention.backward")
+        by["moe_dispatch_combine_bwd"] = range_device_ms(
+            torch, prof.profiler, {node + "IndexPutBackward0",
+                                   node + "GatherBackward0"}, n_traced,
+            outside="flash_attention.backward")
+        traced_ms = statistics.median(r.measured_s for r in steps
+                                      if r.attrs.get("traced")) * 1e3
+        window_ms = sum(r.measured_s for r in prof.records
+                        if r.attrs.get("traced")) * 1e3
+        busy = 100 * busy_union_us(torch, prof.profiler) / 1e3 / window_ms
+        out.update(profile={k: v for k, v in kinds.items() if k != "top"},
+                   traced_step_ms=traced_ms, busy_union_pct=busy)
+        log(f"[moe-train] profile of {n_traced} traced train steps "
+            f"({traced_ms:.2f} ms a traced step): "
+            f"{kinds['kernels_per_step']:.0f} kernels a step, a kernel "
+            f"running {busy:.1f}% of the window, device "
+            f"{kinds['kernel_ms_per_step']:.2f} ms a step; by kind: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
+            + " ms a step (the _fwd ranges hold the forward and its remat "
+            "recompute; the expert products are among the GEMMs too)")
+        for line in kinds["top"]:
+            log(f"[moe-train]   {line}")
+    torch.cuda.empty_cache()
+    out["update_check"] = check_lm_update(torch, cfg, ds.state, q)
+    del ds, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_moe_mla_phase(torch, floor) -> dict:
+    """Phase 18: 18a the card against the CPU at SMOKE width (serving:
+    gemma3, minicpm3, phi3.5-moe, deepseek-v2, gemma2 with the int8 KV
+    cache; training: phi3.5-moe and minicpm3 under dense and int8 Star),
+    flash at gemma3's and phi3.5's layers, the padded MLA calls; 18b
+    deepseek-v2 served at full width (4 of 60 layers); 18c gemma3-12b at
+    full width and depth with the int8 KV cache; 18d phi3.5-moe trained at
+    full width (2 of 32 layers). The training kernels at the (2, n) blocks
+    18a's int8 rounds hand them that 16b's did not."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    out = {"serve_check": {}, "train_check": {}}
+    for arch, kv_quant in MOE_SERVE_REFS:
+        label = f"{arch}{' kv_quant' if kv_quant else ''}"
+        out["serve_check"][label] = serve_reference_check(torch, arch, 80,
+                                                          kv_quant)
+    for arch in MOE_TRAIN_REFS:
+        out["train_check"][arch] = train_reference_check(
+            torch, arch, runs=("dense star", "int8 star"),
+            control=get_arch(arch).moe is not None)
+    out["flash"] = check_flash(torch, MOE_FLASH_CASES)
+    out["mla_flash"] = check_mla_flash(torch)
+    torch.cuda.empty_cache()
+    out["serve_deepseek"] = serve_full_width(torch, "deepseek-v2-236b",
+                                             deepseek_serve_extra)
+    torch.cuda.empty_cache()
+    out["serve_gemma3"] = serve_full_width(torch, "gemma3-12b",
+                                           gemma3_serve_extra)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        out["train"] = run_phi35_training(torch, Path(d))
+    torch.cuda.empty_cache()
+    # the blocks 18a's int8 rounds hand quantize and dequant_mean that 16b's
+    # did not
+    seen = set(lm_path_shapes().values())
+    shapes = {}
+    for arch, label in zip(MOE_TRAIN_REFS, ("phi35", "minicpm3")):
+        for key, shape in lm_path_shapes(arch, label).items():
+            if shape not in seen:
+                shapes[key] = shape
+                seen.add(shape)
+    out["path_rows"] = check_kernels(torch, shapes, floor)
+    out["path_shapes"] = shapes
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -3542,7 +4435,26 @@ def main() -> int:
     launches["ssd"] += m2["serve"]["launches"]
     log(f"[time] phase 17: {time.monotonic() - t0:.1f} s")
 
-    # phase 18: summary
+    # phase 18: MoE and MLA — SMOKE card against CPU (serving and
+    # training), flash at the new layers and the padded MLA calls,
+    # deepseek-v2 served and gemma3-12b served with the int8 KV cache at
+    # full width, phi3.5-moe trained at full width
+    t0 = time.monotonic()
+    mm = run_moe_mla_phase(torch, floor)
+    path_rows.update(mm.pop("path_rows"))
+    path_shapes.update(mm.pop("path_shapes"))
+    # the launches of 18a's card training runs, 18b's and 18c's serving
+    # runs and 18d's main run
+    for part in (*[v for c in mm["train_check"].values()
+                   for v in c["launches"].values()],
+                 mm["train"]["launches"]):
+        for k in (*TRAIN_KERNELS, "flash_attention"):
+            launches[k] += part[k]
+    launches["flash_attention"] += (mm["serve_deepseek"]["launches"]
+                                    + mm["serve_gemma3"]["launches"])
+    log(f"[time] phase 18: {time.monotonic() - t0:.1f} s")
+
+    # phase 19: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -3593,6 +4505,7 @@ def main() -> int:
             out[-1]["cnn_tree"] = cnn_tree_rows
             out[-1]["lm_client_tree"] = lm["update_check"]
             out[-1]["mamba2_client_tree"] = m2["train"]["update_check"]
+            out[-1]["moe_client_tree"] = mm["train"]["update_check"]
         if kname == "quantize_kernel":   # the scalar instantiation
             out[-1]["odd_view"] = {
                 label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
@@ -3604,14 +4517,27 @@ def main() -> int:
                 "launches": launches["flash_attention"],
                 "max_abs_err": max([r["max_abs_err"] for r in flash.values()]
                                    + [r["max_abs_err"]
-                                      for r in flash_grad.values()]),
+                                      for r in flash_grad.values()]
+                                   + [r["max_abs_err"] for r in
+                                      mm["flash"].values()]
+                                   + [r["max_abs_err"] for r in
+                                      mm["mla_flash"].values()]),
                 "ms": g["ms"], "plain_ms": g["plain_ms"],
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "library_ms": g["library_ms"], "shape": g["shape"],
-                "shapes": flash, "train": flash_grad,
+                "shapes": {**flash, **mm["flash"]}, "train": flash_grad,
+                "mla_shapes": mm["mla_flash"],
                 "train_launches": lm["launches"]["flash_attention"]
                 + sum(v["flash_attention"]
-                      for v in lm_check["launches"].values())})
+                      for v in lm_check["launches"].values()),
+                "moe_mla_launches": {
+                    "serve_deepseek": mm["serve_deepseek"]["launches"],
+                    "serve_gemma3": mm["serve_gemma3"]["launches"],
+                    "train_phi35": mm["train"]["launches"]["flash_attention"],
+                    "smoke_train": sum(
+                        v["flash_attention"]
+                        for c in mm["train_check"].values()
+                        for v in c["launches"].values())}})
     m = ssd_rows["layer"]  # mamba2-2.7b's layer at a 4,096-token prefill
     out.append({"name": "ssd", "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/ssd.cu",
@@ -3632,7 +4558,7 @@ def main() -> int:
                     "adaptive": adaptive, "runtime_sync": runtime_sync,
                     "runtime_async": runtime_async, "hierarchical": hier,
                     "cnn": cnn_run, "lm_train": lm, "mamba2": m2,
-                    "card": smi}))
+                    "moe_mla": mm, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

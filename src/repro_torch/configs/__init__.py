@@ -2,7 +2,7 @@
 
 Each module exposes ``FULL`` (the published config) and ``SMOKE`` (a
 reduced variant of the same family), copied from the JAX package. Only
-archs whose layer kinds the port's ``models/transformer.py`` builds are
+archs whose layers the port's ``models/transformer.py`` builds are
 served; every other name the JAX package knows raises and names the
 ROADMAP item it waits for.
 """
@@ -16,23 +16,24 @@ from repro_torch.configs.base import (
     SSMConfig,
     TrainConfig,
 )
-from repro_torch.configs import gemma2_27b, mamba2_2_7b, qwen3_14b
+from repro_torch.configs import (deepseek_v2_236b, gemma2_27b, gemma3_12b,
+                                 mamba2_2_7b, minicpm3_4b, phi35_moe,
+                                 qwen3_14b)
 
 ARCHS = {
+    "deepseek-v2-236b": deepseek_v2_236b,
     "gemma2-27b": gemma2_27b,
+    "gemma3-12b": gemma3_12b,
     "mamba2-2.7b": mamba2_2_7b,
+    "minicpm3-4b": minicpm3_4b,
+    "phi3.5-moe-42b-a6.6b": phi35_moe,
     "qwen3-14b": qwen3_14b,
 }
 
 # archs of the JAX package the port cannot build yet -> what they wait for
 WAITING = {
-    "minicpm3-4b": "MLA attention (ROADMAP queue 1: MLA)",
-    "deepseek-v2-236b": "MLA attention and MoE (ROADMAP queue 1: MLA, MoE)",
-    "phi3.5-moe-42b-a6.6b": "MoE layers (ROADMAP queue 1: MoE)",
     "musicgen-medium": "frontend archs (ROADMAP queue 1: frontend archs)",
     "internvl2-2b": "frontend archs (ROADMAP queue 1: frontend archs)",
-    "gemma3-12b": "its config module; its GQA layers are ported (ROADMAP "
-                  "queue 1: more archs on the ported layers)",
     "recurrentgemma-2b": "RG-LRU layers (ROADMAP queue 1: RG-LRU)",
 }
 

@@ -10,6 +10,7 @@ Examples:
   # on the card (the default device; raises without CUDA)
   python -m repro_torch.launch.serve --arch gemma2-27b
   python -m repro_torch.launch.serve --arch mamba2-2.7b
+  python -m repro_torch.launch.serve --arch gemma3-12b
 
   # the smoke config on the CPU, through the kernels' plain versions
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \\

@@ -1,7 +1,8 @@
-"""Grouped-query attention (qk_norm / softcap / sliding window) with KV caches.
+"""Attention variants with KV caches: GQA (qk_norm / softcap / sliding
+window, optionally an int8 cache) and MLA.
 
-The port of ``src/repro/models/attention.py:72-261, 346-365``, GQA only.
-Three execution modes from one function, as in the JAX package:
+The port of ``src/repro/models/attention.py``. Three execution modes from
+one function, as in the JAX package:
 
   * full sequence (scoring / prefill): the Hopper flash-attention kernel
     (``kernels/flash_attention``) computes causal, sliding-window and
@@ -20,7 +21,17 @@ dict is returned: a full-width cache slot is gigabytes, and the serving
 engine prefills straight into a view of its slot. Decode takes one position
 per batch row (``cache_pos`` of shape (B,)), so one call decodes a batch of
 independent sequences, each writing its own ring slot with its own mask.
-MLA and int8 KV caches wait for later slices (ROADMAP queue 1).
+
+The int8 KV cache (``cfg.kv_quant``) stores k and v symmetric-quantised
+per position and head; prefill attends over the unquantised k/v and
+stores quantised tails, decode dequantises the whole cache to the
+activation type before attending, as the reference does.
+
+MLA (DeepSeek-V2 / MiniCPM3) caches the compressed latent and the rope key.
+Prefill and training expand them to per-head k/v and run the flash kernel,
+with q, k and v zero-padded along the head dim to the next size the kernel
+takes (``_padded_flash``); decode is the absorbed form in float32 (scores
+in latent space), plain torch like the GQA decode.
 """
 from __future__ import annotations
 
@@ -28,8 +39,10 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, AttentionConfig
+from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
 
@@ -47,20 +60,36 @@ def _not_ported(what: str):
 
 def init_attention(gen: torch.Generator, cfg: ArchConfig, dtype):
     att = cfg.attention
-    if att is None or att.kind != "gqa":
-        raise _not_ported("MLA")
     d = cfg.d_model
+    zeros = lambda n: torch.zeros((n,), dtype=dtype, device=gen.device)
+    if att.kind == "gqa":
+        p = {
+            "wq": dense_init(gen, d, att.n_heads * att.head_dim, dtype),
+            "wk": dense_init(gen, d, att.n_kv_heads * att.head_dim, dtype),
+            "wv": dense_init(gen, d, att.n_kv_heads * att.head_dim, dtype),
+            "wo": dense_init(gen, att.n_heads * att.head_dim, d, dtype),
+        }
+        if att.qk_norm:
+            p["q_norm"] = zeros(att.head_dim)
+            p["k_norm"] = zeros(att.head_dim)
+        return p
+    if att.kind != "mla":
+        raise ValueError(att.kind)
+    qk_dim = att.qk_nope_head_dim + att.qk_rope_head_dim
+    r, H = att.kv_lora_rank, att.n_heads
     p = {
-        "wq": dense_init(gen, d, att.n_heads * att.head_dim, dtype),
-        "wk": dense_init(gen, d, att.n_kv_heads * att.head_dim, dtype),
-        "wv": dense_init(gen, d, att.n_kv_heads * att.head_dim, dtype),
-        "wo": dense_init(gen, att.n_heads * att.head_dim, d, dtype),
+        "w_dkv": dense_init(gen, d, r + att.qk_rope_head_dim, dtype),
+        "kv_norm": zeros(r),
+        "w_uk": dense_init(gen, r, H * att.qk_nope_head_dim, dtype),
+        "w_uv": dense_init(gen, r, H * att.v_head_dim, dtype),
+        "wo": dense_init(gen, H * att.v_head_dim, d, dtype),
     }
-    if att.qk_norm:
-        p["q_norm"] = torch.zeros((att.head_dim,), dtype=dtype,
-                                  device=gen.device)
-        p["k_norm"] = torch.zeros((att.head_dim,), dtype=dtype,
-                                  device=gen.device)
+    if att.q_lora_rank:
+        p["w_dq"] = dense_init(gen, d, att.q_lora_rank, dtype)
+        p["q_norm"] = zeros(att.q_lora_rank)
+        p["w_uq"] = dense_init(gen, att.q_lora_rank, H * qk_dim, dtype)
+    else:
+        p["wq"] = dense_init(gen, d, H * qk_dim, dtype)
     return p
 
 
@@ -113,6 +142,26 @@ def _split_heads(x, n, hd):
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
+# ---------------------------------------------------------------------------
+# int8 KV-cache quantization (symmetric, per position x head)
+# ---------------------------------------------------------------------------
+
+def _quant(x):
+    """x: (..., hd) → (int8 codes, float32 scales (...,)); round half to
+    even, as ``jnp.round``. Both divisions are tensor by tensor: CUDA
+    divides by a Python scalar as a multiplication by its reciprocal, an
+    ulp off the reference's quotient."""
+    xf = x.float()
+    peak = torch.amax(torch.abs(xf), dim=-1).clamp_min(1e-8)
+    scale = peak / torch.full_like(peak, 127.0)
+    q = torch.clamp(torch.round(xf / scale[..., None]), -127, 127)
+    return q.to(torch.int8), scale
+
+
+def _dequant(q, scale, dtype):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
 def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
               cache=None, cache_pos=None, kv_quant=False):
     """x: (B, S, d). pos_q: (S,) or (B, S) absolute positions of x's tokens.
@@ -121,10 +170,10 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
     max length (full cache) or the window (ring buffer), written in place.
     With S > 1 the cache must be empty (prefill from zero, as in the JAX
     package); with S == 1, cache_pos (B,) is each row's count of tokens
-    already in the cache. Returns (out, cache).
+    already in the cache. With ``kv_quant`` the cache holds int8 ``k`` /
+    ``v`` and float32 ``k_scale`` / ``v_scale`` (B, C, KV). Returns (out,
+    cache).
     """
-    if kv_quant:
-        raise _not_ported("kv_quant")
     B, S, d = x.shape
     q = _split_heads(x @ params["wq"], att.n_heads, att.head_dim)
     k = _split_heads(x @ params["wk"], att.n_kv_heads, att.head_dim)
@@ -141,19 +190,33 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
         out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
                               causal=True, window=window,
                               softcap=att.logit_softcap, scale=scale)
-        if cache is not None:
+        if cache is not None and kv_quant:
+            for name, t in (("k", k), ("v", v)):
+                codes, s = _quant(t)
+                _write_tail(cache[name], codes)
+                _write_tail(cache[f"{name}_scale"], s)
+        elif cache is not None:
             _write_tail(cache["k"], k)
             _write_tail(cache["v"], v)
     else:
         C = cache["k"].shape[1]
         rows = torch.arange(B, device=x.device)
         slot = torch.remainder(cache_pos, C)
-        cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-        cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+        if kv_quant:
+            for name, t in (("k", k), ("v", v)):
+                codes, s = _quant(t[:, 0])
+                cache[name][rows, slot] = codes
+                cache[f"{name}_scale"][rows, slot] = s
+            # the whole cache, dequantised to the activation type
+            kr = _dequant(cache["k"], cache["k_scale"], x.dtype)
+            vr = _dequant(cache["v"], cache["v_scale"], x.dtype)
+        else:
+            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
+            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+            kr, vr = cache["k"], cache["v"]
         pos_k = _cache_positions(C, cache_pos)                  # (B, C)
         bias = _mask_bias(pos_q.expand(B, 1), pos_k, window)    # (B, 1, C)
-        out = attend(q, cache["k"], cache["v"], bias, att.logit_softcap,
-                     scale)
+        out = attend(q, kr, vr, bias, att.logit_softcap, scale)
 
     out = out.reshape(B, S, -1) @ params["wo"]
     return out, cache
@@ -191,12 +254,121 @@ def _cache_positions(C: int, cache_pos):
 
 def init_gqa_cache(att: AttentionConfig, batch: int, max_len: int, window,
                    dtype, kv_quant=False, device=None):
-    if kv_quant:
-        raise _not_ported("kv_quant")
     C = min(max_len, window) if window is not None else max_len
     shape = (batch, C, att.n_kv_heads, att.head_dim)
+    if kv_quant:
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v_scale": torch.zeros(shape[:3], dtype=torch.float32,
+                                       device=device)}
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+# ---------------------------------------------------------------------------
+# MLA apply
+# ---------------------------------------------------------------------------
+
+def _padded_head_dim(att: AttentionConfig) -> int:
+    """The flash kernel's head dim for MLA: the smallest it takes that
+    holds q/k's (nope + rope) and v's."""
+    need = max(att.qk_nope_head_dim + att.qk_rope_head_dim, att.v_head_dim)
+    for D in HEAD_DIMS:
+        if D >= need:
+            return D
+    raise ValueError(f"MLA head dims {need} exceed the flash kernel's "
+                     f"{HEAD_DIMS}")
+
+
+def _padded_flash(q, k, v, D: int, *, window, softcap, scale):
+    """Causal attention of q, k (B, S, H, Dqk) and v (B, S, H, Dv) through
+    the flash kernel, which takes one head dim D for all three: each is
+    zero-padded to D (the zeros add nothing to the scores), the scale is
+    passed explicitly, and the output is cut back to Dv."""
+    dv = v.shape[-1]
+    pad = lambda t: F.pad(t, (0, D - t.shape[-1]))   # a new, dense tensor
+    out = flash_attention(pad(q), pad(k), pad(v), causal=True,
+                          window=window, softcap=softcap, scale=scale)
+    return out[..., :dv]
+
+
+def _mla_q(params, att: AttentionConfig, x, pos_q, eps):
+    B, S, _ = x.shape
+    qk_dim = att.qk_nope_head_dim + att.qk_rope_head_dim
+    if att.q_lora_rank:
+        cq = rms_norm(x @ params["w_dq"], params["q_norm"], eps)
+        q = cq @ params["w_uq"]
+    else:
+        q = x @ params["wq"]
+    q = q.reshape(B, S, att.n_heads, qk_dim)
+    q_nope = q[..., :att.qk_nope_head_dim]
+    q_rope = apply_rope(q[..., att.qk_nope_head_dim:], pos_q, att.rope_theta)
+    return q_nope, q_rope
+
+
+def apply_mla(params, att: AttentionConfig, x, pos_q, *, window, eps,
+              cache=None, cache_pos=None):
+    """MLA attention. cache: None or {"ckv": (B, C, r), "k_rope": (B, C,
+    rd)}, written in place; the arguments as ``apply_gqa``'s."""
+    B, S, d = x.shape
+    H = att.n_heads
+    nope, rd = att.qk_nope_head_dim, att.qk_rope_head_dim
+    vd, r = att.v_head_dim, att.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rd)
+
+    q_nope, q_rope = _mla_q(params, att, x, pos_q, eps)
+    dkv = x @ params["w_dkv"]
+    ckv = rms_norm(dkv[..., :r], params["kv_norm"], eps)            # (B,S,r)
+    k_rope = apply_rope(dkv[..., r:][:, :, None, :], pos_q,
+                        att.rope_theta)[:, :, 0, :]                 # (B,S,rd)
+
+    if cache is None or S > 1:
+        k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, nope)
+        v = (ckv @ params["w_uv"]).reshape(B, S, H, vd)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        # the single rope key head joins every head's k in the copy cat
+        # makes (an expanded view would not be contiguous)
+        k = torch.cat([k_nope, k_rope[:, :, None, :].expand(B, S, H, rd)],
+                      dim=-1)
+        out = _padded_flash(q, k, v, _padded_head_dim(att), window=window,
+                            softcap=att.logit_softcap, scale=scale)
+        if cache is not None:   # prefill: store the latent tail
+            _write_tail(cache["ckv"], ckv)
+            _write_tail(cache["k_rope"], k_rope)
+    else:
+        # absorbed decode in float32: scores and values in latent space
+        C = cache["ckv"].shape[1]
+        rows = torch.arange(B, device=x.device)
+        slot = torch.remainder(cache_pos, C)
+        cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
+        cache["k_rope"][rows, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
+        ckv_c, kr_c = cache["ckv"].float(), cache["k_rope"].float()
+        w_uk = params["w_uk"].reshape(r, H, nope).float()
+        q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)
+        scores = torch.einsum("bshr,bcr->bhsc", q_lat, ckv_c)
+        scores = scores + torch.einsum("bshr,bcr->bhsc", q_rope.float(),
+                                       kr_c)
+        scores = softcap(scores * scale, att.logit_softcap)
+        pos_k = _cache_positions(C, cache_pos)                  # (B, C)
+        bias = _mask_bias(pos_q.expand(B, 1), pos_k, window)    # (B, 1, C)
+        w = torch.softmax(scores + bias[:, None], dim=-1)
+        o_lat = torch.einsum("bhsc,bcr->bshr", w, ckv_c)
+        w_uv = params["w_uv"].reshape(r, H, vd).float()
+        out = torch.einsum("bshr,rhv->bshv", o_lat, w_uv).to(x.dtype)
+
+    out = out.reshape(B, S, -1) @ params["wo"]
+    return out, cache
+
+
+def init_mla_cache(att: AttentionConfig, batch: int, max_len: int, window,
+                   dtype, device=None):
+    C = min(max_len, window) if window is not None else max_len
+    return {"ckv": torch.zeros((batch, C, att.kv_lora_rank), dtype=dtype,
+                               device=device),
+            "k_rope": torch.zeros((batch, C, att.qk_rope_head_dim),
+                                  dtype=dtype, device=device)}
 
 
 # ---------------------------------------------------------------------------
@@ -206,9 +378,12 @@ def init_gqa_cache(att: AttentionConfig, batch: int, max_len: int, window,
 def apply_attention(params, cfg: ArchConfig, x, pos_q, *, is_local: bool,
                     cache=None, cache_pos=None):
     att = cfg.attention
-    if att.kind != "gqa":
-        raise _not_ported("MLA")
     window = att.window if is_local else None
+    if att.kind == "mla":
+        # the latent cache is already small; kv_quant does not apply to
+        # it, as in the reference
+        return apply_mla(params, att, x, pos_q, window=window,
+                         eps=cfg.norm_eps, cache=cache, cache_pos=cache_pos)
     return apply_gqa(params, att, x, pos_q, window=window, eps=cfg.norm_eps,
                      cache=cache, cache_pos=cache_pos, kv_quant=cfg.kv_quant)
 
@@ -216,8 +391,9 @@ def apply_attention(params, cfg: ArchConfig, x, pos_q, *, is_local: bool,
 def init_attention_cache(cfg: ArchConfig, is_local: bool, batch: int,
                          max_len: int, dtype, device=None):
     att = cfg.attention
-    if att.kind != "gqa":
-        raise _not_ported("MLA")
     window = att.window if is_local else None
+    if att.kind == "mla":
+        return init_mla_cache(att, batch, max_len, window, dtype,
+                              device=device)
     return init_gqa_cache(att, batch, max_len, window, dtype,
                           kv_quant=cfg.kv_quant, device=device)

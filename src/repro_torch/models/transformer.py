@@ -1,8 +1,10 @@
 """Decoder LM assembled from an ArchConfig.
 
 The port of ``src/repro/models/transformer.py:39-304`` for attention
-layers (kinds ``G`` and ``L``) with dense SwiGLU MLPs and Mamba2 layers
-(kind ``M``, ``models/ssm.py``). The JAX package
+layers (kinds ``G`` and ``L``: GQA or MLA, ``models/attention.py``) with
+dense SwiGLU MLPs or MoE layers (``models/moe.py``; the first
+``moe.n_dense_layers`` layers, the reference's ``head``, keep a dense
+MLP), and Mamba2 layers (kind ``M``, ``models/ssm.py``). The JAX package
 stacks each group of ``block_pattern`` layers for ``lax.scan``; here the
 layers are a Python list in layer order (``params["layers"]``, one cache
 per layer in ``cache["layers"]``). ``utils/convert.py`` maps a JAX tree
@@ -25,7 +27,8 @@ it, ``layer_views`` reads it back as this module's per-layer layout, each
 leaf a view of a group row, so gradients flow into the stacked leaves.
 ``forward`` is differentiable, and under grad each layer is rematerialised
 in the backward (``torch.utils.checkpoint``), as the reference's
-``jax.checkpoint`` does.
+``jax.checkpoint`` does. ``forward``'s aux is the sum of the MoE layers'
+load-balance losses (zero without MoE).
 
 ``cache["pos"]`` is a (B,) integer tensor: each batch row's token count,
 so a batch of independent sequences (the serving engine's slots) decodes
@@ -43,6 +46,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import resolve_device
 from repro_torch.models import attention as A
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm, softcap)
@@ -121,13 +125,6 @@ def check_supported(cfg: ArchConfig):
         raise NotImplementedError(
             f"{cfg.name}: layer kinds {bad} are not ported yet (ROADMAP "
             f"queue 1: {', '.join(what.get(b, b) for b in bad)})")
-    if cfg.moe is not None:
-        raise A._not_ported("MoE")
-    if kinds & {"G", "L"}:
-        if cfg.attention is None or cfg.attention.kind != "gqa":
-            raise A._not_ported("MLA")
-        if cfg.kv_quant:
-            raise A._not_ported("kv_quant")
     if "M" in kinds:
         SSM.check_supported(cfg)
     if cfg.frontend is not None:
@@ -138,13 +135,24 @@ def check_supported(cfg: ArchConfig):
 # Init
 # ---------------------------------------------------------------------------
 
-def _init_layer(gen, cfg: ArchConfig, kind: str, dtype):
+def _in_head(cfg: ArchConfig, i: int) -> bool:
+    """Whether layer i is one of the leading dense layers of a MoE arch
+    (the reference's ``head``)."""
+    return i < len(_plan(cfg)[0])
+
+
+def _init_layer(gen, cfg: ArchConfig, kind: str, in_head: bool, dtype):
     d = cfg.d_model
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=gen.device)
     if kind == "M":
         return {"ln1": zeros(), "mamba": SSM.init_mamba2(gen, cfg, dtype)}
-    return {"ln1": zeros(), "attn": A.init_attention(gen, cfg, dtype),
-            "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
+    p = {"ln1": zeros(), "attn": A.init_attention(gen, cfg, dtype),
+         "ln2": zeros()}
+    if cfg.moe is not None and not in_head:
+        p["moe"] = MOE.init_moe(gen, cfg, dtype)
+    else:
+        p["mlp"] = init_mlp(gen, d, cfg.d_ff, dtype)
+    return p
 
 
 def init_params(cfg: ArchConfig, *, seed: int, device=None):
@@ -184,8 +192,8 @@ def _build_params(gen, cfg: ArchConfig):
                                         device=dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, vp, dtype)
-    params["layers"] = [_init_layer(gen, cfg, kind, dtype)
-                        for kind in cfg.layer_kinds()]
+    params["layers"] = [_init_layer(gen, cfg, kind, _in_head(cfg, i), dtype)
+                        for i, kind in enumerate(cfg.layer_kinds())]
     return params
 
 
@@ -195,21 +203,29 @@ def _build_params(gen, cfg: ArchConfig):
 
 def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
                  cache_pos=None, fresh=False):
+    """Returns (x, aux): aux is the MoE layer's load-balance loss, else
+    None."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "M":
         out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache,
                                   fresh=fresh)
-        return x + out
+        return x + out, None
     att_out, cache = A.apply_attention(p["attn"], cfg, h, pos_q,
                                        is_local=(kind == "L"), cache=cache,
                                        cache_pos=cache_pos)
     x = x + att_out
     h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
-    return x + apply_mlp(p["mlp"], h2)
+    if "moe" in p:
+        m, aux = MOE.apply_moe(p["moe"], cfg, h2)
+        return x + m, aux
+    return x + apply_mlp(p["mlp"], h2), None
 
 
 def _run_stack(params, cfg: ArchConfig, x, pos_q, caches=None,
                cache_pos=None, fresh=False):
+    """Returns (x, aux): aux sums the MoE layers' losses in layer order
+    (a float32 zero without MoE)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, kind in enumerate(cfg.layer_kinds()):
         p = params["layers"][i]
         if caches is None and torch.is_grad_enabled() and (
@@ -217,12 +233,15 @@ def _run_stack(params, cfg: ArchConfig, x, pos_q, caches=None,
                                        for t in tree_leaves(p))):
             # remat: the backward recomputes the layer from its input, as
             # the reference's jax.checkpoint does
-            x = checkpoint(_apply_layer, p, cfg, kind, x, pos_q,
-                           use_reentrant=False)
-            continue
-        c = caches[i] if caches is not None else None
-        x = _apply_layer(p, cfg, kind, x, pos_q, c, cache_pos, fresh)
-    return x
+            x, aux = checkpoint(_apply_layer, p, cfg, kind, x, pos_q,
+                                use_reentrant=False)
+        else:
+            c = caches[i] if caches is not None else None
+            x, aux = _apply_layer(p, cfg, kind, x, pos_q, c, cache_pos,
+                                  fresh)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
 
 
 def _logits(params, cfg: ArchConfig, x):
@@ -262,8 +281,8 @@ def forward(params, cfg: ArchConfig, tokens):
     """Full-sequence scoring. tokens: (B, S) integer. Returns (logits, aux)."""
     x = _embed_tokens(params, cfg, tokens)
     pos_q = torch.arange(x.shape[1], device=x.device)
-    x = _run_stack(params, cfg, x, pos_q)
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _run_stack(params, cfg, x, pos_q)
+    return _logits(params, cfg, x), aux
 
 
 def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
@@ -314,8 +333,8 @@ def prefill(params, cfg: ArchConfig, tokens, cache):
             c["state"].zero_()
     # a one-token prompt takes the decode branch at position 0 (from the
     # zeroed state in a Mamba2 layer); a longer one scans from no state
-    x = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"],
-                   fresh=True)
+    x, _ = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"],
+                      fresh=True)
     cache["pos"].fill_(S)
     return _logits(params, cfg, x), cache
 
@@ -324,7 +343,7 @@ def decode_step(params, cfg: ArchConfig, tokens, cache):
     """tokens: (B, 1). One decode step of every row against the cache."""
     x = _embed_tokens(params, cfg, tokens)
     cache_pos = cache["pos"]
-    x = _run_stack(params, cfg, x, cache_pos[:, None], cache["layers"],
-                   cache_pos)
+    x, _ = _run_stack(params, cfg, x, cache_pos[:, None], cache["layers"],
+                      cache_pos)
     cache["pos"].add_(1)
     return _logits(params, cfg, x), cache

@@ -8,7 +8,13 @@ the output is rounded to bfloat16). Ragged shapes, which the Pallas
 kernel's block grid does not take, are held to the JAX ``attention_ref``.
 The GQA layer (full sequence, prefill, decode with a ring wrap) is held to
 JAX's ``apply_gqa`` at smoke width to 1e-5 (float32 matmuls and softmax
-in another order).
+in another order). The int8 KV cache: ``_quant`` codes and scales
+bit-equal to the reference's, a quantised prefill and decode within 1e-4
+(the dequantised cache carries the same codes). MLA (minicpm3 and
+deepseek-v2 SMOKE, with and without a window of 64): the prefill through
+the zero-padded flash call and the absorbed decode within 1e-4 of
+``apply_mla``; the padded call equals the plain attention on the
+unpadded head dims bit for bit in float32.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -262,13 +268,186 @@ def test_cache_positions_match_jax():
         np.testing.assert_array_equal(got, want)
 
 
-def test_mla_and_kv_quant_raise_with_their_roadmap_item():
-    att = get_arch("gemma2-27b", smoke=True).attention
-    cfg = get_arch("gemma2-27b", smoke=True)
-    with pytest.raises(NotImplementedError, match="kv_quant"):
-        TA.init_attention_cache(cfg.replace(kv_quant=True), True, 1, 8,
-                                torch.float32)
-    with pytest.raises(NotImplementedError, match="MLA"):
-        TA.apply_attention({}, cfg.replace(attention=att.__class__(
-            **{**att.__dict__, "kind": "mla"})), torch.zeros(1, 2, 256),
-            torch.arange(2), is_local=False)
+# -- the int8 KV cache --------------------------------------------------------
+
+def test_quant_codes_and_scales_bit_equal_jax():
+    """Random rows, rows whose ties sit exactly on .5 (scale 1: round half
+    to even), an all-zero row (the 1e-8 clamp) and bf16 input."""
+    rng = np.random.RandomState(6)
+    x = (rng.randn(3, 17, 4, 64) * 3.0).astype(np.float32)
+    x[0, 0, 0] = 0.0
+    x[0, 1, 0, :6] = [127.0, 2.5, -3.5, 0.5, -0.5, 126.5]
+    x[0, 1, 0, 6:] = np.round(x[0, 1, 0, 6:])
+    for dt in ("float32", "bfloat16"):
+        jdt, tdt = _DT[dt]
+        want_q, want_s = JA._quant(jnp.asarray(x).astype(jdt))
+        got_q, got_s = TA._quant(torch.from_numpy(x).to(tdt))
+        assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+        np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+        np.testing.assert_array_equal(
+            TA._dequant(got_q, got_s, torch.float32).numpy(),
+            np.asarray(JA._dequant(want_q, want_s, jnp.float32)))
+
+
+def test_kv_quant_prefill_then_decode_with_ring_wrap_matches_jax():
+    """gemma2's local layer (window 64, softcap) with the int8 cache: an
+    80-token prefill writes quantised, rolled tails; decode steps write
+    their ring slots and attend over the dequantised cache."""
+    jcfg, tcfg, jp, tp = _layer("gemma2-27b")
+    jcfg, tcfg = jcfg.replace(kv_quant=True), tcfg.replace(kv_quant=True)
+    B, S, n_dec = 2, 80, 6
+    x = np.random.RandomState(7).randn(B, S + n_dec,
+                                       jcfg.d_model).astype(np.float32)
+    jc = JA.init_attention_cache(jcfg, True, B, 100, jnp.float32)
+    tc = TA.init_attention_cache(tcfg, True, B, 100, torch.float32)
+    assert {k: (tuple(v.shape), v.dtype) for k, v in tc.items()} == {
+        "k": ((B, 64, 2, 64), torch.int8), "v": ((B, 64, 2, 64), torch.int8),
+        "k_scale": ((B, 64, 2), torch.float32),
+        "v_scale": ((B, 64, 2), torch.float32)}
+    pos = np.arange(S, dtype=np.int32)
+    want, jc = JA.apply_attention(jp, jcfg, jnp.asarray(x[:, :S]),
+                                  jnp.asarray(pos), is_local=True, cache=jc,
+                                  cache_pos=jnp.int32(0))
+    got, tc = TA.apply_attention(tp, tcfg, torch.from_numpy(x[:, :S]),
+                                 torch.from_numpy(pos).long(), is_local=True,
+                                 cache=tc, cache_pos=torch.zeros(B).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    for i in range(n_dec):
+        p = S + i
+        want, jc = JA.apply_attention(
+            jp, jcfg, jnp.asarray(x[:, p:p + 1]), jnp.asarray([p], jnp.int32),
+            is_local=True, cache=jc, cache_pos=jnp.int32(p))
+        got, tc = TA.apply_attention(
+            tp, tcfg, torch.from_numpy(x[:, p:p + 1]),
+            torch.full((B, 1), p), is_local=True, cache=tc,
+            cache_pos=torch.full((B,), p))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    for key in ("k_scale", "v_scale"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   rtol=1e-5)
+    for key in ("k", "v"):
+        np.testing.assert_array_equal(tc[key].numpy(), np.asarray(jc[key]))
+
+
+# -- MLA -----------------------------------------------------------------------
+
+MLA_ARCHS = ["minicpm3-4b", "deepseek-v2-236b"]
+
+
+def _mla_layer(name, window):
+    jcfg, tcfg, jp, tp = _layer(name)
+    if window is not None:
+        jcfg = jcfg.replace(attention=jcfg.attention.__class__(
+            **{**jcfg.attention.__dict__, "window": window}))
+        tcfg = tcfg.replace(attention=tcfg.attention.__class__(
+            **{**tcfg.attention.__dict__, "window": window}))
+    return jcfg, tcfg, jp, tp
+
+
+@pytest.mark.parametrize("name", MLA_ARCHS)
+@pytest.mark.parametrize("window", [None, 64])
+def test_apply_mla_prefill_then_decode_matches_jax(name, window):
+    """An 80-token prefill (past the window where there is one) through
+    the padded flash call, then absorbed decode steps with the ring
+    wrapping; the latent cache equal to the reference's."""
+    jcfg, tcfg, jp, tp = _mla_layer(name, window)
+    B, S, n_dec = 2, 80, 5
+    x = np.random.RandomState(8).randn(B, S + n_dec,
+                                       jcfg.d_model).astype(np.float32)
+    jc = JA.init_attention_cache(jcfg, True, B, 100, jnp.float32)
+    tc = TA.init_attention_cache(tcfg, True, B, 100, torch.float32)
+    assert set(tc) == {"ckv", "k_rope"}
+    assert tc["ckv"].shape == (B, window or 100,
+                               tcfg.attention.kv_lora_rank)
+    full, _ = JA.apply_attention(jp, jcfg, jnp.asarray(x[:, :S]),
+                                 jnp.arange(S, dtype=jnp.int32),
+                                 is_local=True)
+    pos = np.arange(S, dtype=np.int32)
+    want, jc = JA.apply_attention(jp, jcfg, jnp.asarray(x[:, :S]),
+                                  jnp.asarray(pos), is_local=True, cache=jc,
+                                  cache_pos=jnp.int32(0))
+    got, tc = TA.apply_attention(tp, tcfg, torch.from_numpy(x[:, :S]),
+                                 torch.from_numpy(pos).long(), is_local=True,
+                                 cache=tc, cache_pos=torch.zeros(B).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
+    np.testing.assert_allclose(got.numpy(), np.asarray(full), atol=1e-4,
+                               rtol=1e-4)
+    for i in range(n_dec):
+        p = S + i
+        want, jc = JA.apply_attention(
+            jp, jcfg, jnp.asarray(x[:, p:p + 1]), jnp.asarray([p], jnp.int32),
+            is_local=True, cache=jc, cache_pos=jnp.int32(p))
+        got, tc = TA.apply_attention(
+            tp, tcfg, torch.from_numpy(x[:, p:p + 1]),
+            torch.full((B, 1), p), is_local=True, cache=tc,
+            cache_pos=torch.full((B,), p))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+    for key in ("ckv", "k_rope"):
+        np.testing.assert_allclose(tc[key].numpy(), np.asarray(jc[key]),
+                                   atol=1e-5, rtol=1e-5)
+
+
+def test_mla_decode_rows_keep_their_own_positions():
+    """One absorbed decode call over rows at different positions equals
+    each row decoded alone."""
+    _, tcfg, _, tp = _mla_layer("deepseek-v2-236b", 64)
+    att = tcfg.attention
+    rng = np.random.RandomState(9)
+    caches = TA.init_attention_cache(tcfg, True, 3, 100, torch.float32)
+    for buf in caches.values():
+        buf.copy_(torch.from_numpy(rng.randn(*buf.shape).astype(np.float32)))
+    pos = torch.tensor([5, 63, 130])
+    x = torch.from_numpy(rng.randn(3, 1, tcfg.d_model).astype(np.float32))
+    alone = []
+    for r in range(3):
+        c = {k: v[r:r + 1].clone() for k, v in caches.items()}
+        out, _ = TA.apply_mla(tp, att, x[r:r + 1], pos[r:r + 1, None],
+                              window=64, eps=tcfg.norm_eps, cache=c,
+                              cache_pos=pos[r:r + 1])
+        alone.append(out)
+    both, _ = TA.apply_mla(tp, att, x, pos[:, None], window=64,
+                           eps=tcfg.norm_eps, cache=caches, cache_pos=pos)
+    np.testing.assert_allclose(both.numpy(), torch.cat(alone).numpy(),
+                               atol=1e-6, rtol=1e-6)
+
+
+# (B, S, H, nope + rope, v): minicpm3's and deepseek's head dims
+MLA_SHAPES = [(2, 96, 4, 96, 64), (1, 80, 4, 192, 128)]
+
+
+@pytest.mark.parametrize("shape", MLA_SHAPES)
+@pytest.mark.parametrize("window", [None, 32])
+def test_padded_flash_equals_unpadded_plain_attention(shape, window):
+    """The zero-padded call through the flash route (the plain version on
+    the CPU) against the plain attention on the unpadded head dims, with
+    the scale of the unpadded q: equal in float32."""
+    B, S, H, dqk, dv = shape
+    rng = np.random.RandomState(10)
+    q, k = (torch.from_numpy(rng.randn(B, S, H, dqk).astype(np.float32))
+            for _ in range(2))
+    v = torch.from_numpy(rng.randn(B, S, H, dv).astype(np.float32))
+    scale = 1.0 / dqk ** 0.5
+    D = 128 if dqk <= 128 else 256
+    got = TA._padded_flash(q, k, v, D, window=window, softcap=None,
+                           scale=scale)
+    pos = torch.arange(S)
+    want = TA.attend(q, k, v, TA._mask_bias(pos, pos, window), None, scale)
+    assert got.shape == (B, S, H, dv)
+    np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+def test_mla_head_dims_pad_to_the_kernels_sizes():
+    for name, smoke, D in (("minicpm3-4b", False, 128),
+                           ("minicpm3-4b", True, 128),
+                           ("deepseek-v2-236b", False, 256),
+                           ("deepseek-v2-236b", True, 128)):
+        assert TA._padded_head_dim(get_arch(name, smoke).attention) == D
+    att = get_arch("deepseek-v2-236b").attention
+    with pytest.raises(ValueError, match="exceed"):
+        TA._padded_head_dim(att.__class__(**{**att.__dict__,
+                                             "qk_nope_head_dim": 256}))

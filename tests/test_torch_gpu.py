@@ -16,7 +16,10 @@ another order); in bfloat16 the tolerance of
 query row of each head within 1e-2 of its norm). The SSD scan: the JAX
 package's own tolerances (``tests/test_ssd_kernel.py``), 3e-4 in float32
 for y and the final state, 5e-2 for y from bfloat16 inputs (y is rounded
-to bfloat16).
+to bfloat16). The MoE layer and the int8 KV cache, card against CPU: the
+same expert assignment and the output within 1e-5 (float32), the cache's
+codes and scales bit-equal; the zero-padded MLA flash call against the
+plain attention on the unpadded head dims, with flash's tolerances.
 """
 import math
 
@@ -1065,3 +1068,85 @@ def test_update_of_bf16_rows_with_float32_grads_matches_plain(cuda, m_dtype):
     assert fused_sgd_update.launches == before + 1
     for p, m, wp, wm in zip(P, M, want_p, want_m):
         assert torch.equal(p[0], wp) and torch.equal(m[0], wm)
+
+
+# -- MoE, MLA and the int8 KV cache (the card against the CPU route) --------
+
+@pytest.mark.parametrize("arch", ["phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"])
+@pytest.mark.parametrize("capacity_factor", [None, 0.5])
+def test_moe_layer_routes_equal_on_the_card(cuda, arch, capacity_factor):
+    """The SMOKE MoE layer in float32, 3 rows of 40 tokens: the same
+    assignment (experts, ranks, kept) on both devices, the output within
+    1e-5 and aux within 1e-6; the inputs' smallest top-k margin (1e-4)
+    far above the router's float32 rounding."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as MOE
+
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    if capacity_factor is not None:
+        cfg = cfg.replace(moe=dataclasses.replace(
+            cfg.moe, capacity_factor=capacity_factor))
+    params = MOE.init_moe(torch.Generator().manual_seed(0), cfg,
+                          torch.float32)
+    x = torch.from_numpy(np.random.RandomState(1).randn(
+        3, 40, cfg.d_model).astype(np.float32))
+    on = {k: (v.to(cuda) if isinstance(v, torch.Tensor)
+              else {kk: vv.to(cuda) for kk, vv in v.items()})
+          for k, v in params.items()}
+    rc, rg = MOE.route(params, cfg.moe, x), MOE.route(on, cfg.moe, x.to(cuda))
+    top = torch.topk(torch.softmax(x @ params["w_router"], dim=-1),
+                     cfg.moe.top_k + 1, dim=-1).values
+    assert float((top[..., -2] - top[..., -1]).min()) > 1e-4
+    for name in ("idx", "rank", "keep"):
+        assert torch.equal(getattr(rg, name).cpu(), getattr(rc, name))
+    assert bool((~rc.keep).any()) == (capacity_factor is not None)
+    yc, ac = MOE.apply_moe(params, cfg, x)
+    yg, ag = MOE.apply_moe(on, cfg, x.to(cuda))
+    torch.testing.assert_close(yg.cpu(), yc, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(ag.cpu(), ac, atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,dqk,dv", [(2, 300, 8, 96, 64),
+                                          (1, 257, 4, 192, 128)])
+def test_padded_mla_flash_matches_plain(cuda, dtype, B, S, H, dqk, dv):
+    """minicpm3's (96/64 → 128) and deepseek's (192/128 → 256) head dims
+    through the zero-padded kernel call against the plain attention on
+    the unpadded dims: float32 within 1e-5, bfloat16 within ref.py's
+    tolerance."""
+    from repro_torch.models import attention as TA
+
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, k = (torch.randn(B, S, H, dqk, generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    v = torch.randn(B, S, H, dv, generator=g, device=cuda).to(dtype)
+    scale = 1.0 / math.sqrt(dqk)
+    before = FA.flash_attention.launches
+    out = TA._padded_flash(q, k, v, TA.HEAD_DIMS[1 if dqk <= 128 else 2],
+                           window=None, softcap=None, scale=scale)
+    assert FA.flash_attention.launches == before + 1
+    assert out.shape == (B, S, H, dv) and out.dtype == dtype
+    pos = torch.arange(S, device=cuda)
+    ref = TA.attend(q.float(), k.float(), v.float(),
+                    TA._mask_bias(pos, pos, None), None, scale)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, ref, atol=1e-5, rtol=1e-5)
+    else:
+        _, elem, row = bf16_mismatch(out, ref)
+        assert elem <= 1.0 and row <= 1.0, (elem, row)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_quant_codes_equal_across_routes(cuda, dtype):
+    from repro_torch.models import attention as TA
+
+    x = (torch.randn(4, 33, 8, 128, generator=torch.Generator()
+                     .manual_seed(4)) * 3.0).to(dtype)
+    x[0, 0, 0] = 0.0
+    qc, sc = TA._quant(x)
+    qg, sg = TA._quant(x.to(cuda))
+    assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
+    assert torch.equal(TA._dequant(qg, sg, dtype).cpu(),
+                       TA._dequant(qc, sc, dtype))

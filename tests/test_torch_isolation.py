@@ -60,7 +60,10 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.kernels.quantize.kernel" in mods
     assert "repro_torch.models.cnn" in mods
     assert "repro_torch.engine.topology" in mods
-    for m in ("optim.sgd", "checkpoint.ckpt", "core.local_sgd",
+    for m in ("models.moe", "models.attention", "configs.gemma3_12b",
+              "configs.minicpm3_4b", "configs.phi35_moe",
+              "configs.deepseek_v2_236b",
+              "optim.sgd", "checkpoint.ckpt", "core.local_sgd",
               "core.stl_sgd", "core.baselines", "launch.train",
               "launch.serve", "obs.export", "obs.profile", "obs.diff",
               "obs.slo"):

@@ -5,8 +5,9 @@ are identical; the scheduler makes identical decisions on identical
 offers. ``ServeEngine.run`` at smoke width in float32, with the JAX
 params carried across and both engines priced by the same explicit
 ``DeviceModel(peak_flops, hbm_bw)``, produces identical ledgers
-(``trace_keys``: tokens and every modeled time). Inside the port, the
-batched engine's tokens equal the per-request ``greedy_decode``.
+(``trace_keys``: tokens and every modeled time); gemma2, mamba2 and
+deepseek-v2 (MLA and MoE). Inside the port, the batched engine's tokens
+equal the per-request ``greedy_decode``.
 """
 import dataclasses
 
@@ -263,6 +264,45 @@ def test_mamba2_engine_ledger_and_tokens_identical_to_jax(served_mamba):
         assert rec.tokens == want[0].tolist(), f"req {r.id} slot {rec.slot}"
 
 
+@pytest.fixture(scope="module")
+def served_deepseek():
+    """deepseek-v2 SMOKE in float32: MLA, a dense first layer, then MoE
+    with a shared expert."""
+    jcfg = jax_get_arch("deepseek-v2-236b", smoke=True).replace(
+        dtype="float32")
+    tcfg = get_arch("deepseek-v2-236b", smoke=True).replace(dtype="float32")
+    jp = JTF.init_params(jax.random.key(0), jcfg)
+    tp = transformer_params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                     "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_deepseek_engine_ledger_and_tokens_identical_to_jax(served_deepseek):
+    """Each decode step's slots are their own MoE capacity pools, so the
+    batched tokens equal JAX's engine's and ``greedy_decode``'s."""
+    jcfg, tcfg, jp, tp = served_deepseek
+    jeng = JServeEngine(jcfg, jp, scheduler=JSchedulerConfig(**SCHED),
+                        device=JDeviceModel(**PRICES))
+    teng = ServeEngine(tcfg, tp, scheduler=SchedulerConfig(**SCHED),
+                       device=DeviceModel(**PRICES))
+    assert teng.decode_step_s == jeng.decode_step_s
+    kw = _traffic_kw(seed=3)
+    jrep = jeng.run(j_generate(JTrafficConfig(**kw), jcfg.vocab_size),
+                    registry=JRegistry())
+    treqs = generate_requests(TrafficConfig(**kw), tcfg.vocab_size)
+    trep = teng.run(treqs, registry=MetricsRegistry())
+    assert len(trep.completed) == len(treqs) == 9
+    assert trep.trace_keys() == jrep.trace_keys()
+    assert (trep.n_steps, trep.n_prefills, trep.makespan_s) == \
+        (jrep.n_steps, jrep.n_prefills, jrep.makespan_s)
+    assert [r.tokens for r in trep.records] == \
+        [r.tokens for r in jrep.records]
+    for r, rec in zip(treqs, trep.records):
+        want = greedy_decode(tp, tcfg, torch.from_numpy(r.prompt[None])
+                             .long(), r.n_out, SCHED["max_seq_len"])[0]
+        assert rec.tokens == want[0].tolist(), f"req {r.id} slot {rec.slot}"
+
+
 def test_mamba2_serve_cli_smoke_on_cpu():
     report = serve_cli.main(["--arch", "mamba2-2.7b", "--smoke", "--device",
                              "cpu", "--requests", "5", "--slots", "2"])
@@ -286,6 +326,17 @@ def test_device_model_prices_one_chip_only():
         ref = JDeviceModel(n_chips=n_chips, **PRICES)
         assert ours.step_time_s(cfg, shape) == \
             ref.step_time_s(jcfg, J_SHAPES["decode_32k"])
+
+
+@pytest.mark.parametrize("args", [
+    ["--arch", "deepseek-v2-236b"],
+    ["--arch", "gemma3-12b"],
+    ["--arch", "minicpm3-4b"], ["--arch", "phi3.5-moe-42b-a6.6b"]])
+def test_serve_cli_on_the_moe_and_mla_archs_on_cpu(args):
+    report = serve_cli.main(args + ["--smoke", "--device", "cpu",
+                                    "--requests", "4", "--slots", "2"])
+    assert len(report.completed) == 4 and report.n_prefills == 4
+    assert report.makespan_s > 0 and report.modeled_tok_s > 0
 
 
 def test_serve_cli_smoke_on_cpu():

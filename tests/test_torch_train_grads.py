@@ -9,8 +9,11 @@
   summing float32 products in another order; measured ≤ 4e-6).
 * ``local_sgd.lm_loss`` value (1e-5 relative) and gradients of every leaf
   (1e-5 of the leaf's largest |gradient|; measured ≤ 2e-6, ≤ 4.4e-6 on
-  mamba2) on qwen3-14b, gemma2-27b and mamba2-2.7b SMOKE in float32, the
-  JAX params carried across in the grouped layout. gemma2 covers the
+  mamba2) on qwen3-14b, gemma2-27b, mamba2-2.7b, phi3.5-moe, deepseek-v2
+  and minicpm3-4b SMOKE in float32, the JAX params carried across in the
+  grouped layout. The MoE archs' loss includes the load-balance aux, and
+  their float32 router leaf gets its gradient through it and the gates;
+  the MLA archs differentiate through the zero-padded flash call. gemma2 covers the
   final softcap under autograd, the sliding window (80 tokens, window 64)
   and the attention softcap in the backward; mamba2 runs 128 tokens, two
   of its 64-row chunks (the JAX model's chunked scan needs S a multiple
@@ -85,7 +88,9 @@ def test_flash_gradients_need_no_grad_on_every_input():
 
 
 # tokens a sequence: mamba2's two chunks of 64 (S a multiple of the chunk)
-SEQ = {"qwen3-14b": 80, "gemma2-27b": 80, "mamba2-2.7b": 128}
+SEQ = {"qwen3-14b": 80, "gemma2-27b": 80, "mamba2-2.7b": 128,
+       "phi3.5-moe-42b-a6.6b": 80, "deepseek-v2-236b": 80,
+       "minicpm3-4b": 80}
 
 
 @pytest.fixture(scope="module", params=sorted(SEQ))
@@ -99,8 +104,9 @@ def model(request):
 
 def test_lm_loss_and_gradients_match_jax(model):
     jcfg, tcfg, jp = model
+    seq = {get_arch(k, smoke=True).name: v for k, v in SEQ.items()}
     toks = np.random.RandomState(2).randint(
-        0, jcfg.vocab_size, (2, SEQ[jcfg.name.removesuffix("-smoke")] + 1))
+        0, jcfg.vocab_size, (2, seq[jcfg.name] + 1))
     batch = {"tokens": toks[:, :-1].astype(np.int32),
              "labels": toks[:, 1:].astype(np.int32)}
     jb = jax.tree.map(jnp.asarray, batch)
@@ -132,11 +138,15 @@ def test_grouped_layout_round_trips(model):
     back = TTF.to_grouped(views, tcfg)
     for a, b in zip(tree_leaves(back), tree_leaves(grouped)):
         assert torch.equal(a, b)
-    block, name = (("mamba", "w_in") if "mamba" in views["layers"][0]
-                   else ("attn", "wq"))
-    leaf = views["layers"][0][block][name]
+    first = len(grouped["head"])    # the first layer of the blocks
+    block = "mamba" if "mamba" in views["layers"][first] else "attn"
+    name = sorted(views["layers"][first][block])[0]
+    leaf = views["layers"][first][block][name]
     leaf.add_(1.0)
     assert torch.equal(grouped["blocks"]["sub0"][block][name][0], leaf)
+    if first:                        # deepseek's dense head layer
+        assert "mlp" in views["layers"][0] and "moe" in views["layers"][1]
+        assert views["layers"][0]["mlp"] is grouped["head"][0]["mlp"]
 
 
 def test_serving_logits_keep_the_in_place_softcap():

@@ -1,12 +1,15 @@
 """The port's transformer against the JAX package at smoke width.
 
 gemma2-27b (local + global layers, window 64, both softcaps, tied
-embeddings) and qwen3-14b (qk_norm, untied) SMOKE configs in float32; the
-JAX package's random params are carried across by
+embeddings), qwen3-14b (qk_norm, untied), gemma3-12b (local + global,
+window 64, qk_norm), minicpm3-4b (MLA), phi3.5-moe (MoE, every layer) and
+deepseek-v2 (MLA and MoE with a shared expert after a dense first layer)
+SMOKE configs in float32, and gemma2 with the int8 KV cache; the JAX
+package's random params are carried across by
 ``transformer_params_from_jax``, so both packages compute the same
 function. Logits agree to 1e-4 (float32 matmuls, softmax and rsqrt in
 another order through two layers; the logits are at most 30 after the
-final softcap), and greedy tokens are equal.
+final softcap), the MoE aux to 1e-5, and greedy tokens are equal.
 """
 import dataclasses
 
@@ -27,7 +30,8 @@ from repro_torch.launch import flops as TFL
 from repro_torch.models import transformer as TTF
 from repro_torch.utils.convert import transformer_params_from_jax
 
-ARCHS = ["gemma2-27b", "qwen3-14b"]
+ARCHS = ["gemma2-27b", "qwen3-14b", "gemma3-12b", "minicpm3-4b",
+         "phi3.5-moe-42b-a6.6b", "deepseek-v2-236b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -49,9 +53,12 @@ def _tokens(cfg, B, S, seed=0):
 def test_forward_matches_jax(model):
     jcfg, tcfg, jp, tp = model
     toks = _tokens(jcfg, 2, 80)
-    want, _ = JTF.forward(jp, jcfg, jnp.asarray(toks))
+    want, want_aux = JTF.forward(jp, jcfg, jnp.asarray(toks))
     got, aux = TTF.forward(tp, tcfg, torch.from_numpy(toks).long())
-    assert got.shape == (2, 80, TTF.padded_vocab(tcfg)) and float(aux) == 0.0
+    assert got.shape == (2, 80, TTF.padded_vocab(tcfg))
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    assert (float(aux) == 0.0) == (tcfg.moe is None)
+    assert float(aux) == pytest.approx(float(want_aux), rel=1e-5)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
 
@@ -106,8 +113,10 @@ def test_prefill_through_a_row_view_writes_the_shared_cache(model):
     TTF.prefill(tp, tcfg, toks, alone)
     assert stacked["pos"].tolist() == [0, 20, 0]
     for c, a in zip(stacked["layers"], alone["layers"]):
-        assert torch.equal(c["k"][1:2], a["k"])
-        assert not c["k"][0].any() and not c["k"][2].any()
+        assert set(c) == set(a)
+        for key in c:
+            assert torch.equal(c[key][1:2], a[key])
+            assert not c[key][0].any() and not c[key][2].any()
 
 
 def test_init_params_layout_matches_jax():
@@ -122,9 +131,13 @@ def test_init_params_layout_matches_jax():
             (k, tuple(v.shape)) for k, v in _flatten(t).items())
         assert flat(got) == flat(want)
         assert got["embed"].dtype == torch.bfloat16
+        types = {k: v.dtype for k, v in _flatten(got).items()}
+        assert {k for k, t in types.items() if t != torch.bfloat16} == {
+            k for k in types if k.endswith("/w_router")}
         again = TTF.init_params(tcfg, seed=0, device="cpu")
-        assert torch.equal(got["layers"][1]["mlp"]["w_up"],
-                           again["layers"][1]["mlp"]["w_up"])
+        last = _flatten(got["layers"][1])
+        assert all(torch.equal(v, _flatten(again["layers"][1])[k])
+                   for k, v in last.items())
 
 
 def _flatten(tree, prefix=""):
@@ -151,14 +164,64 @@ def test_default_device_needs_cuda():
         TTF.init_cache(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("name", ["deepseek-v2-236b",
-                                  "phi3.5-moe-42b-a6.6b", "internvl2-2b",
-                                  "recurrentgemma-2b"])
+@pytest.mark.parametrize("name", ["internvl2-2b", "recurrentgemma-2b"])
 def test_unported_archs_raise_naming_their_roadmap_item(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_arch(name)
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+def test_new_arch_configs_equal_jax(smoke):
+    """gemma3-12b, minicpm3-4b, phi3.5-moe and deepseek-v2: every field,
+    the MoE and attention sub-configs included; only the RG-LRU and
+    frontend archs still wait."""
+    from repro_torch.configs import ARCHS as T_ARCHS
+    from repro_torch.configs import WAITING
+
+    for name in ARCHS + ["mamba2-2.7b"]:
+        assert dataclasses.asdict(get_arch(name, smoke)) == \
+            dataclasses.asdict(jax_get_arch(name, smoke))
+    assert sorted(WAITING) == ["internvl2-2b", "musicgen-medium",
+                               "recurrentgemma-2b"]
+    assert sorted(T_ARCHS) == sorted(ARCHS + ["mamba2-2.7b"])
+
+
+def test_kv_quant_prefill_and_decode_match_jax():
+    """gemma2 SMOKE with the int8 KV cache: an 80-token prompt past the
+    window, then 8 decode steps over the dequantised ring; and the
+    first decode step's logits within the reference's 2e-2 of the
+    full-precision cache's (``tests/test_variants.py``)."""
+    name = "gemma2-27b"
+    jcfg = jax_get_arch(name, smoke=True).replace(dtype="float32")
+    tcfg = get_arch(name, smoke=True).replace(dtype="float32")
+    jp = JTF.init_params(jax.random.key(0), jcfg)
+    tp = transformer_params_from_jax(jax.tree.map(np.asarray, jp), tcfg,
+                                     "cpu")
+    toks = _tokens(jcfg, 2, 80, seed=6)
+    firsts = []
+    for quant in (True, False):
+        jq, tq = jcfg.replace(kv_quant=quant), tcfg.replace(kv_quant=quant)
+        jc = JTF.init_cache(jq, 2, 100)
+        tc = TTF.init_cache(tq, 2, 100, device="cpu")
+        want, jc = JTF.prefill(jp, jq, jnp.asarray(toks), jc)
+        got, tc = TTF.prefill(tp, tq, torch.from_numpy(toks).long(), tc)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=1e-4)
+        tok = np.asarray(jnp.argmax(want[:, -1:], axis=-1))
+        for i in range(8 if quant else 1):
+            want, jc = JTF.decode_step(jp, jq, jnp.asarray(tok), jc)
+            got, tc = TTF.decode_step(tp, tq, torch.from_numpy(tok.copy())
+                                      .long(), tc)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                       atol=1e-4, rtol=1e-4)
+            if i == 0:
+                firsts.append(got)
+            tok = np.asarray(jnp.argmax(want, axis=-1))
+        assert (tc["layers"][0]["k"].dtype == torch.int8) == quant
+    q, fp = firsts
+    assert float((q - fp).abs().max() / fp.abs().max()) < 2e-2
 
 
 def test_unported_layer_kinds_raise():
