@@ -69,12 +69,13 @@ failure propagates, so the script exits non-zero and prints no result.
      L+G, window 64, float32) against the CPU run on the same weights, one
      80-token prompt through ``prefill`` and 8 decode steps, logits to
      1e-4.
-  7. Serving at full width: gemma2-27b FULL (46 layers, d_model 4608,
-     vocab 256000, bfloat16, random weights from seed 0) behind
+  7. Serving at full width: gemma2-27b FULL (d_model 4608, vocab 256000,
+     bfloat16, random weights from seed 0), its depth cut to 24 of 46
+     layers since phase 19 joined the script (the run's time), behind
      ``ServeEngine`` with 4 slots of 6,144 tokens, 6 Poisson requests plus
      one 4,608-token prompt (the window bites in prefill, the local ring
      wraps in decode). Every request must complete, flash attention must
-     launch 46 times per prefill, and the tokens must match the port's
+     launch 24 times per prefill, and the tokens must match the port's
      ``greedy_decode`` (first token exactly; later ones up to the first
      near-tie). Prints wall, tok/s, prefill and decode-step times, peak
      memory and a profile of one prefill and 4 decode steps.
@@ -100,12 +101,13 @@ failure propagates, so the script exits non-zero and prints no result.
   9. Serving, small: mamba2-2.7b's SMOKE config (2 layers, chunk 64,
      float32) on the card against the CPU, one 100-token prompt (a short
      last chunk) through ``prefill`` and 8 decode steps, logits to 1e-4.
- 10. Serving at full width: mamba2-2.7b FULL (64 layers, d_model 2560,
-     80 SSD heads, vocab 50280, bfloat16, random weights from seed 0)
-     behind ``ServeEngine`` with 8 slots of 6,144 tokens, 12 Poisson
-     requests, one 4,000-token prompt with 24 outputs and a one-token
-     prompt that lands in a used slot after the drain. Every request must
-     complete, the SSD kernel must launch 64 times per multi-token
+ 10. Serving at full width: mamba2-2.7b FULL (d_model 2560, 80 SSD
+     heads, vocab 50280, bfloat16, random weights from seed 0), its depth
+     cut to 32 of 64 layers since phase 19 joined the script, behind
+     ``ServeEngine`` with 8 slots of 6,144 tokens, 12 Poisson requests,
+     one 4,000-token prompt with 24 outputs and a one-token prompt that
+     lands in a used slot after the drain. Every request must
+     complete, the SSD kernel must launch 32 times per multi-token
      prefill, and the tokens must match ``greedy_decode`` as in phase 7.
      Timed and profiled as phase 7.
  11. The adaptive period (``algo="adaptive"``): first the card's run
@@ -118,8 +120,9 @@ failure propagates, so the script exits non-zero and prints no result.
      differ between the runs, how many differ and the history gap before
      and after it logged. Then Table 4's configuration at its full scale
      (logreg d=123, n=16,384, N=32, B=32, stl_sc's schedule with T1=512,
-     k1=2 as the cap, η1=0.5, threshold 3e-4, int8 over Star), cut to 3 of
-     its 6 stages. The objective must fall below 0.9x its start, every
+     k1=2 as the cap, η1=0.5, threshold 3e-4, int8 over Star), cut to 2 of
+     its 6 stages (3 before phase 19 joined the script). The objective
+     must fall below 0.9x its start, every
      round length must be within its stage's cap, and the launches must be
      one fused update per local step and one quantize and one dequant_mean
      per leaf per *triggered* round (counted from the rounds the backend
@@ -127,7 +130,8 @@ failure propagates, so the script exits non-zero and prints no result.
  12. The event runtime, synchronous: Table 5's configuration at its full
      scale (logreg d=123, n=16,384, N=8, B=32, η1=0.5, stl_sc T1=256,
      k1=2, int8, 25% stragglers at 4x, 1 ms a local step, dropout 0.1),
-     cut to 3 of its 6 stages, on ``runtime.EventBackend`` as
+     cut to 2 of its 6 stages (3 before phase 19), on
+     ``runtime.EventBackend`` as
      ``runtime.run`` wires it: in the run's first masked round every
      dropped client's rows are, at the reduce, exactly as they were before
      the round, and the present clients' rows moved; launches as in
@@ -154,7 +158,8 @@ failure propagates, so the script exits non-zero and prints no result.
  14. The two-level ``Hierarchical`` topology. Table 4's hierarchical row
      at its full scale (logreg d=123, n=16,384, N=32, B=32, stl_sc T1=512,
      k1=2, IID, "hier": a dense intra-pod hop and an int8 inter-pod hop
-     over 2 pods), cut to 3 of its 6 stages, then the same with int8 on
+     over 2 pods), cut to 2 of its 6 stages (3 before phase 19), then the
+     same with int8 on
      both hops: the comm ledger equal to the hop costs times the rounds
      and to the integer formula, one fused update per local step, one
      quantize and one dequant_mean per leaf per int8 hop message (per pod
@@ -174,7 +179,8 @@ failure propagates, so the script exits non-zero and prints no result.
      draws (width 8, 16x16 and 32x32, 4 rounds); ResNet18 (width 64, 11.17 M parameters, 38
      leaves) on 8,192 32x32 images over 8 Non-IID clients, stl_nc1
      (eta1 0.005, T1 512, k1 8, 1/gamma 0.01), momentum 0.9, B=16, int8,
-     cut to stage 1 (512 local steps, 64 rounds), 1 - train accuracy as
+     cut to 32 rounds of stage 1 (256 local steps; 64 rounds, the whole
+     stage, before phase 19 joined the script), 1 - train accuracy as
      the objective every 8 rounds; VGG16 (width 64, 30 leaves) for 16
      rounds (128 steps). The objective finite (and, for ResNet18, ending
      below its start: VGG16's does not fall within 16 rounds on the
@@ -239,12 +245,13 @@ failure propagates, so the script exits non-zero and prints no result.
      backward's bound (``ssd_bwd_work``). (b) mamba2-2.7b SMOKE as 16b
      runs qwen3 SMOKE (dense, int8, hier; the same limits; the SSD
      forward twice a layer a client a step), its control with the SSD
-     output detached. (c) mamba2-2.7b at full width and depth (64 layers,
-     bf16, seed 0) through ``launch/train.main`` with ``--profile
+     output detached. (c) mamba2-2.7b at full width, its depth cut to 16
+     of 64 layers (since phase 19, for the run's time; bf16, seed 0),
+     through ``launch/train.main`` with ``--profile
      --profile-dir --profile-calls 2 --trace --ckpt-out``: 2 clients, 2
      sequences of 1,024 tokens a client a step, stl_sc eta1 0.05, T1 8, k1
      4, 2 stages cut at 16 local steps: the loss finite and falling, the
-     launches (SSD 256 and fused update 2 a local step), the ledger, ms a
+     launches (SSD 64 and fused update 2 a local step), the ledger, ms a
      step against its bound (GEMMs at 989 TFLOP/s, the scan at a third of
      it), peak memory, the skew table, device ms a step by kind over the
      profiler's 2 traced steps (GEMMs, SSD forward, the plain SSD
@@ -253,7 +260,7 @@ failure propagates, so the script exits non-zero and prints no result.
      client's fused update at the trained state as in 16c. (d) that
      checkpoint behind ``launch/serve.main(["--ckpt", ..., "--trace", ...,
      "--profile"])``: 4 requests, the restored params equal to the trained
-     consensus (per-leaf sums), 64 SSD launches a multi-token prefill,
+     consensus (per-leaf sums), 16 SSD launches a multi-token prefill,
      tokens held to ``greedy_decode`` on the restored params. Then the
      training kernels at the (2, n) blocks 17b's int8 rounds hand them.
  18. MoE and MLA. (a) SMOKE in float32, the card against the CPU: an
@@ -286,8 +293,9 @@ failure propagates, so the script exits non-zero and prints no result.
      dropped by capacity at the 3,000-token prefill, and a profile of 4
      decode steps: device ms a step by the layer's parts (attention, the
      MoE layer and its ``moe.*`` ranges, the dense MLP, the rest) and the
-     share of the wall a kernel runs. (c) gemma3-12b at
-     full width and depth (48 layers, 5:1 local:global, window 1,024)
+     share of the wall a kernel runs. (c) gemma3-12b at full width
+     (5:1 local:global, window 1,024), its depth cut to 24 of 48 layers
+     since phase 19 joined the script,
      with the int8 KV cache behind ``ServeEngine`` (4 slots of 6,144, a
      4,608-token prompt), as phase 7; the first decode step after a
      2,000-token prompt within 2e-2 of the bf16 cache's largest logit;
@@ -304,11 +312,55 @@ failure propagates, so the script exits non-zero and prints no result.
      backward, the update), one client's update at the trained state as
      16c. Then the training kernels at the (2, n) blocks 18a's int8
      rounds hand them that 16b's did not.
- 19. One ``{"kernels": [...]}`` summary line (all five kernels; launches
+ 19. RG-LRU and the frontend archs. (a) SMOKE in float32, the card against
+     the CPU: recurrentgemma-2b (R, R, L, window 64) with an 80-token
+     prompt, internvl2-2b and musicgen-medium with 16 frontend embeddings
+     (float32 from a seed) before a 24-token prompt, each through
+     ``prefill`` and 8 decode steps, logits to 1e-4; on the card, a used
+     cache row's prefill equal to a fresh one's, bit for bit (logits and
+     recurrent states); recurrentgemma and musicgen (its batches carrying
+     their bf16 frame embeddings) trained as 16b (dense and int8 Star,
+     16b's limits). Flash at the phase's new shapes as phase 5:
+     recurrentgemma's local layer (1, 4,608, 10/1, 256, window 2,048) and
+     training layer (2, 1,024), internvl2's (1, 768, 16/8, 128) and
+     musicgen's training layer (2, 1,280, 24/24, 64). (b)
+     recurrentgemma-2b at full width and depth (26 layers, d_model 2,560,
+     lru 2,560, 10/1 heads of 256, window 2,048, vocab 256,000, tied, bf16,
+     seed 0) behind ``ServeEngine``, 4 slots of 6,144 tokens, 6 Poisson
+     requests and a 4,608-token prompt, as phase 7 (8 flash launches a
+     prefill, tokens held to ``greedy_decode``); the bounds the engine
+     prices, a slot's recurrent state against its attention cache in
+     bytes, the decode profile with a ``layer.rglru`` range. (c)
+     recurrentgemma-2b at full width and depth through
+     ``launch/train.main`` (``--profile --profile-dir --profile-calls 1
+     --ckpt-out``; 2 clients, 2 x 1,024 tokens a client a step, stl_sc
+     eta1 0.05, T1 8, k1 4, 2 stages cut at 16 local steps, dense Star):
+     the loss finite and falling, flash 32 and the update 4 launches a step
+     (the float32 ``a_param`` rows are a type group of their own), ms a
+     step against its bound (``lm_step_work``), peak memory, device ms a
+     step by kind, the RG-LRU scan's device ms at the training layer and
+     a step (``rglru_scan_ms``), one client's update at the trained state
+     as 16c; its checkpoint served as 17d. (d) internvl2-2b at full width
+     and depth behind ``ServeEngine``, 4 slots of 2,048 tokens, 6 Poisson
+     requests, each with 256 patch embeddings of width 1,024 (float32 from
+     a seed, bfloat16 on the card) and a prompt of 64-512 tokens: 24 flash
+     launches a prefill, tokens held to ``greedy_decode(..., frontend=)``;
+     the logits with the frontend differ from those without it, and the
+     engine prices a frontend prefill with its 256 tokens. (e)
+     musicgen-medium at full width and depth (48 layers) through
+     ``launch/train.main`` with frontend batches (2 clients, 2 x (256
+     frames + 1,024 tokens), eta1 0.03, T1 8, k1 4, 16 local steps, dense
+     Star, ``--profile``): the loss finite and falling, flash 192 and the
+     update 2 launches a step, ms a step against its bound, peak memory.
+     Then the training kernels at the (2, n) blocks 19a's int8 rounds hand them
+     that earlier phases' did not.
+ 20. One ``{"kernels": [...]}`` summary line (all five kernels; launches
      summed over each path's measured run: phases 4 and 11-15's, the
      three card runs of 16b and 17b, the main runs of 16c and 17c and
      17d's serving run, 18a's four card training runs, 18b's and 18c's
-     serving runs and 18d's main run, not
+     serving runs and 18d's main run, 19a's four card training runs,
+     19b's, 19c's checkpoint's and 19d's serving runs and 19c's and 19e's
+     main runs, not
      the comparison launches, the profiles or 16c's streaming check; the
      flash row carries phase 16a as ``train`` and 18a's padded MLA calls
      as ``mla_shapes``, the SSD row phase 17a),
@@ -1255,6 +1307,15 @@ def router_margins(torch, params, moe, x):
 # from the first step, before any token routes apart; the controls show
 # that the check refuses one (``MOE_ROUTER_FAULT``).
 MOE_FLIP_MARGIN = 1e-3
+# 16b's state check, where a leaf's reading passes its limit in a run that
+# routed nothing apart: the leaf may read up to this many times its order
+# floor, the reading of the CPU run against itself on one thread (another
+# float32 summation order, nothing else changed). A leaf whose whole update
+# is a few dozen float32 steps of its parameters (recurrentgemma SMOKE's
+# second ``w_i``: 71 at the median over 24 local steps; its moment 2e-6
+# apart and its update 2.1e-4 apart between two CPU orders) reads above
+# 16b's 1e-4 on any two orders.
+ORDER_FLOOR_FACTOR = 2.0
 # the MoE control: the router leaves' gradient 5% too large on the card,
 # under int8 Star (the run whose tokens route apart), a fault small
 # enough to flip near ties first
@@ -1376,10 +1437,11 @@ def codes_apart(torch, cpu, card, label) -> dict:
 
 def serve_reference_check(torch, arch: str, n_prompt: int,
                           kv_quant: bool = False):
-    """Phases 6, 9 and 18a: ``arch``'s SMOKE config in float32 on the card
-    against the CPU run (plain versions) on the same weights: an
-    ``n_prompt``-token prompt through ``prefill``, then 8 decode steps fed
-    the CPU run's tokens. gemma2-27b's 80-token prompt is longer than its
+    """Phases 6, 9, 18a and 19a: ``arch``'s SMOKE config in float32 on the
+    card against the CPU run (plain versions) on the same weights: an
+    ``n_prompt``-token prompt (after a frontend arch's embeddings, float32
+    from a seed) through ``prefill``, then 8 decode steps fed the CPU run's
+    tokens. gemma2-27b's 80-token prompt is longer than its
     window of 64; mamba2-2.7b's 100-token prompt ends in a short chunk
     (chunk 64). Max logit difference 1e-4: float32 on both sides (TF32
     off), sums in another order through two layers, logits at most 30
@@ -1399,6 +1461,7 @@ def serve_reference_check(torch, arch: str, n_prompt: int,
     p_gpu = tree_map(lambda t: t.to("cuda:0"), p_cpu)
     prompt = torch.from_numpy(np.random.RandomState(0).randint(
         0, cfg.vocab_size, size=(1, n_prompt))).long()
+    fe, n_fe = seeded_frontend(torch, cfg)
     runs = {}
 
     def run(dev, params, replay=None):
@@ -1407,8 +1470,9 @@ def serve_reference_check(torch, arch: str, n_prompt: int,
             torch, p, moe, x).min()))
         with recording_routes(routes, keep), \
                 recording_quant(quants, replay):
-            cache = TF.init_cache(cfg, 1, n_prompt + 16, device=dev)
-            logits, cache = TF.prefill(params, cfg, prompt.to(dev), cache)
+            cache = TF.init_cache(cfg, 1, n_fe + n_prompt + 16, device=dev)
+            logits, cache = TF.prefill(params, cfg, prompt.to(dev), cache,
+                                       None if fe is None else fe.to(dev))
             steps = [logits[:, -1].cpu()]
             toks = runs["cpu"]["toks"] if "cpu" in runs else []
             for i in range(8):
@@ -1456,36 +1520,75 @@ def serve_reference_check(torch, arch: str, n_prompt: int,
                                  f"assignment differs")
         out.update(assignment_equal=True, layer_calls=len(rc),
                    min_router_margin=margin)
-    log(f"[reference] {label} smoke f32, {n_prompt}-token prompt + 8 decode "
-        f"steps: card vs CPU max |logit diff| {err:.3g} (tol 1e-4)")
+    log(f"[reference] {label} smoke f32, "
+        f"{f'{n_fe} frontend embeddings + ' if n_fe else ''}{n_prompt}-token "
+        f"prompt + 8 decode steps: card vs CPU max |logit diff| {err:.3g} "
+        f"(tol 1e-4)")
     if not err <= 1e-4:
         raise AssertionError(f"serve reference {label}: card vs CPU {err}")
     return out
 
 
+def seeded_frontend(torch, cfg):
+    """A frontend arch's (1, n_fe, frontend_dim) float32 embeddings from a
+    seed, and n_fe; (None, 0) for any other arch."""
+    import numpy as np
+
+    if cfg.frontend is None:
+        return None, 0
+    fe = np.random.RandomState(1).randn(1, cfg.n_frontend_tokens,
+                                        cfg.frontend_dim)
+    return torch.from_numpy(fe.astype(np.float32)), cfg.n_frontend_tokens
+
+
+def kernel_layers(cfg, kname: str) -> int:
+    """The layers of ``cfg`` whose multi-token call launches ``kname``
+    once: the attention layers for flash attention, the Mamba2 layers for
+    the SSD scan."""
+    kinds = cfg.layer_kinds()
+    if kname == "flash_attention":
+        return sum(k in "GL" for k in kinds)
+    return kinds.count("M")
+
+
 # The two full-width serving cells: arch, slots, Poisson requests, the
 # long prompt's length and outputs, the kernel each prefill launches once per
 # layer, and whether a one-token prompt joins a used slot after the drain.
-# Phase 18's cells add a depth cut (``layers``), the slots' length
-# (``max_seq_len``, default 6,144) and the int8 KV cache (``kv_quant``).
+# Phase 18's cells add a depth cut (``layers``; since phase 19 joined the
+# script, gemma2's, mamba2's and gemma3's cells are cut too, for the run's
+# time), the slots' length
+# (``max_seq_len``, default 6,144) and the int8 KV cache (``kv_quant``);
+# phase 19's frontend requests (``frontend``: each request carries its own
+# embeddings, float32 from a seed, its prompt drawn in ``prompt_range``)
+# and a long prompt used for the timings alone (``long_request`` False).
 SERVE_CELLS = {
     "gemma2-27b": dict(n_slots=4, n_requests=6, long_len=4608, long_out=24,
-                       kernel="flash_attention", one_token=False),
+                       kernel="flash_attention", one_token=False,
+                       layers=24),
     "mamba2-2.7b": dict(n_slots=8, n_requests=12, long_len=4000, long_out=24,
-                        kernel="ssd", one_token=True),
+                        kernel="ssd", one_token=True, layers=32),
     "deepseek-v2-236b": dict(n_slots=4, n_requests=6, long_len=3000,
                              long_out=16, kernel="flash_attention",
                              one_token=False, layers=4, max_seq_len=4096),
     "gemma3-12b": dict(n_slots=4, n_requests=4, long_len=4608, long_out=16,
                        kernel="flash_attention", one_token=False,
-                       kv_quant=True),
+                       kv_quant=True, layers=24),
+    "recurrentgemma-2b": dict(n_slots=4, n_requests=6, long_len=4608,
+                              long_out=24, kernel="flash_attention",
+                              one_token=False),
+    "internvl2-2b": dict(n_slots=4, n_requests=6, long_len=1024,
+                         long_out=16, kernel="flash_attention",
+                         one_token=False, max_seq_len=2048, frontend=True,
+                         prompt_range=(64, 512), long_request=False),
 }
 
 
 def serve_full_width(torch, arch: str, extra=None):
-    """Phases 7, 10, 18b and 18c: ``arch`` at full width behind
+    """Phases 7, 10, 18b, 18c, 19b and 19d: ``arch`` at full width behind
     ServeEngine. ``extra(torch, cfg, params, long_prompt, sched)``, where
     given, adds its checks' results to the returned dict."""
+    import dataclasses
+
     import numpy as np
 
     from repro_torch import kernels
@@ -1522,10 +1625,19 @@ def serve_full_width(torch, arch: str, extra=None):
         mean_prompt_len=512, max_prompt_len=2048, mean_out_len=16,
         max_out_len=32, seed=0, rate_rps=rate), cfg.vocab_size)
     n = len(reqs)
+    if cell.get("frontend"):
+        rng = np.random.RandomState(2)
+        lo, hi = cell["prompt_range"]
+        reqs = [dataclasses.replace(
+            r, prompt=rng.randint(0, cfg.vocab_size, size=(
+                int(rng.randint(lo, hi + 1)),)).astype(np.int32),
+            frontend=rng.randn(cfg.n_frontend_tokens, cfg.frontend_dim)
+            .astype(np.float32)) for r in reqs]
     long_prompt = np.random.RandomState(1).randint(
         0, cfg.vocab_size, size=(cell["long_len"],)).astype(np.int32)
-    reqs.append(Request(id=n, arrival_s=reqs[2].arrival_s,
-                        prompt=long_prompt, n_out=cell["long_out"]))
+    if cell.get("long_request", True):
+        reqs.append(Request(id=n, arrival_s=reqs[2].arrival_s,
+                            prompt=long_prompt, n_out=cell["long_out"]))
     if cell["one_token"]:
         # after every earlier request has drained (the modeled clock runs
         # prefills and decode steps one after another): lands in slot 0
@@ -1533,8 +1645,11 @@ def serve_full_width(torch, arch: str, extra=None):
             eng.prefill_s(r) + r.n_out * eng.decode_step_s for r in reqs)
         reqs.append(Request(id=n + 1, arrival_s=drained,
                             prompt=np.array([11], np.int32), n_out=6))
+    fe_txt = (f", each after {cfg.n_frontend_tokens} frontend embeddings"
+              if cell.get("frontend") else "")
     log(f"[serve] requests (prompt, n_out): "
-        f"{[(r.prompt_len, r.n_out) for r in reqs]}; rate {rate:.1f} rps, "
+        f"{[(r.prompt_len, r.n_out) for r in reqs]}{fe_txt}"
+        f"; rate {rate:.1f} rps, "
         f"modeled decode step {eng.decode_step_s * 1e3:.3f} ms")
 
     kernels.reset_launch_counts()
@@ -1557,9 +1672,9 @@ def serve_full_width(torch, arch: str, extra=None):
         raise AssertionError(f"serve {arch}: not every request completed")
     kname = cell["kernel"]
     # a one-token prompt takes the decode branch: no kernel launch
-    multi = sum(1 for r in reqs if r.prompt_len > 1)
+    multi = sum(1 for r in reqs if r.prompt_len > 1 or r.frontend is not None)
     if report.n_prefills != len(reqs) or \
-            counts[kname] != cfg.n_layers * multi:
+            counts[kname] != kernel_layers(cfg, kname) * multi:
         raise AssertionError(f"serve {arch}: {kname} launched "
                              f"{counts[kname]} times for {multi} "
                              f"multi-token prefills")
@@ -1606,8 +1721,12 @@ def hold_to_greedy(torch, arch, params, cfg, reqs, records, max_seq_len):
     for r, rec in zip(reqs, records):
         prompt = torch.as_tensor(r.prompt[None], dtype=torch.long,
                                  device=dev)
+        # a request's frontend goes to the card as bfloat16, as the engine
+        # hands it over
+        fe = (None if r.frontend is None else torch.as_tensor(
+            r.frontend[None]).to(dev, torch.bfloat16))
         ref, margin = greedy_decode(params, cfg, prompt, r.n_out,
-                                    max_seq_len)
+                                    max_seq_len, frontend=fe)
         ref, margin = ref[0].tolist(), margin[0].tolist()
         if rec.tokens[0] != ref[0]:
             raise AssertionError(f"serve {arch}: request {r.id} first token "
@@ -1632,11 +1751,14 @@ def hold_to_greedy(torch, arch, params, cfg, reqs, records, max_seq_len):
 
 def time_serve_steps(torch, cfg, params, sched, long_prompt):
     """Host-clock times (synchronized) of a 512-token and the long prefill
-    and of the full-width decode step, then torch.profiler over one
-    prefill and 4 decode steps: the top device ops."""
+    (a frontend arch's after its embeddings) and of the full-width decode
+    step, then torch.profiler over one prefill and 4 decode steps: the top
+    device ops."""
     from repro_torch.models import transformer as TF
 
     dev = torch.device("cuda:0")
+    fe, _ = seeded_frontend(torch, cfg)
+    fe = None if fe is None else fe.to(dev, torch.bfloat16)
     stacked = TF.init_cache(cfg, sched.n_slots, sched.max_seq_len, device=dev)
     toks = torch.zeros((sched.n_slots, 1), dtype=torch.long, device=dev)
     long_prompt = torch.as_tensor(long_prompt[None], dtype=torch.long,
@@ -1646,7 +1768,7 @@ def time_serve_steps(torch, cfg, params, sched, long_prompt):
 
     def prefill(n, slot=0):
         logits, _ = TF.prefill(params, cfg, prompts[n],
-                               TF.cache_rows(stacked, slot, slot + 1))
+                               TF.cache_rows(stacked, slot, slot + 1), fe)
         return logits
 
     out = {}
@@ -1712,16 +1834,18 @@ def time_serve_steps(torch, cfg, params, sched, long_prompt):
 # Phase 11: Table 4's configuration at its full scale
 # (benchmarks/table4_comm_cost.py:49-72): logreg d=123, n=16,384, N=32,
 # B=32, lambda 1e-3; "adaptive" (stl_sc's schedule, T1 = 2048 // 4, k1 = 2
-# as the cap, eta1 = 0.5, threshold 3e-4), int8 over Star, 6 stages.
+# as the cap, eta1 = 0.5, threshold 3e-4), int8 over Star, 6 stages; run 2
+# of them (3 before phase 19 joined the script: the run's time).
 TABLE4 = {"n": 16384, "d": 123, "clients": 32, "T1": 512, "stages": 6,
-          "run_stages": 3}
+          "run_stages": 2}
 # Phases 12-13: Table 5's configuration at its full scale
 # (benchmarks/table5_straggler.py:96-118, 196): logreg d=123, n=16,384, N=8,
 # B=32, eta1 = 0.5, stl_sc with T1 = 1024 // 4 and k1 = 2 over 6 stages,
 # int8, 25% stragglers at 4x, 1 ms a local step; dropout 0.1 (the masked
-# round, and dropped async jobs).
+# round, and dropped async jobs). The sync run 2 of the 6 stages (3 before
+# phase 19 joined the script), the async run 2.
 TABLE5 = {"n": 16384, "d": 123, "clients": 8, "T1": 256, "stages": 6,
-          "run_stages": 3, "async_stages": 2}
+          "run_stages": 2, "async_stages": 2}
 # Table 5's streaming axis at its full scale (table5_straggler.py:121-142):
 # the MLP (d = 96, width 96, depth 3, 8 leaves) on n = 4,096, N = 8, sync
 # (k = 1), dense, datacenter link
@@ -1733,7 +1857,7 @@ TABLE5_MLP = {"n": 4096, "d": 96, "width": 96, "depth": 3, "clients": 8}
 # over 2 pods; then int8 on both hops. Table 5d's streaming∘hierarchical
 # axis at its full size (table5_straggler.py:250-318): Table 5's MLP, sync,
 # 2 pods, a billed downlink, 25% stragglers at 4x.
-TABLE4_HIER = {"pods": 2, "run_stages": 3, "check_stages": 1}
+TABLE4_HIER = {"pods": 2, "run_stages": 2, "check_stages": 1}
 # one client's upload of one leaf: the (1, M) blocks of the async path
 # (the Table 4/5 logreg leaf, the Table 5 MLP's leaf sizes)
 # then the stacked blocks phases 11-12 hand quantize and dequant_mean: the
@@ -2283,10 +2407,11 @@ def path_trees(torch) -> dict:
 # CPU-reduced 16): 32x32x3 images, 10 classes, n = 8,192, 8 Non-IID clients
 # (label-sorted, iid_percent 0), B = 16, momentum 0.9, stl_nc1 with
 # eta1 = 0.005, T1 = 512, k1 = 8, 1/gamma = 0.01, int8 rounds; 8 stages,
-# cut to stage 1 (512 local steps, 64 rounds); VGG16 cut to 16 rounds.
+# cut to 32 rounds of stage 1 (256 local steps; the whole stage, 64 rounds,
+# before phase 19 joined the script); VGG16 cut to 16 rounds.
 TABLE2 = {"n": 8192, "hw": 32, "classes": 10, "clients": 8, "width": 64,
           "batch": 16, "T1": 512, "k1": 8.0, "stages": 8, "run_stages": 1,
-          "vgg_rounds": 16, "eval_every": 8}
+          "resnet_rounds": 32, "vgg_rounds": 16, "eval_every": 8}
 # the blocks the CNN's int8 round hands quantize and dequant_mean, and its
 # update's leaves: ResNet18's largest leaf (the last 3x3x512x512 conv), the
 # head's weight and a 64-channel scale, each stacked over the 8 clients
@@ -2604,15 +2729,11 @@ def run_cnn(torch, dev="cuda:0"):
     cnn_reference_check(torch)
     out = {"launches": {k: 0 for k in TRAIN_KERNELS}}
     for net in ("resnet18", "vgg16"):
-        if net == "resnet18":
-            log_cut("phase 15", "Table 2 stl_nc1 ResNet18 (width 64, N=8, "
-                    "int8)", t2["run_stages"], t2["stages"])
-            kw = {}
-        else:
-            log(f"[cut] phase 15: Table 2 stl_nc1 VGG16 (width 64, N=8, "
-                f"int8), {t2['vgg_rounds']} rounds of stage 1")
-            kw = {"max_rounds": t2["vgg_rounds"],
-                  "chunk_rounds": t2["vgg_rounds"]}
+        rounds = {"resnet18": t2["resnet_rounds"],
+                  "vgg16": t2["vgg_rounds"]}[net]
+        log(f"[cut] phase 15: Table 2 stl_nc1 {net} (width 64, N=8, int8), "
+            f"{rounds} rounds of stage 1 of {t2['stages']}")
+        kw = {"max_rounds": rounds, "chunk_rounds": rounds}
         engine, backend, p0 = cnn_engine(
             torch, dev, net, t2["width"], t2["n"], t2["hw"], t2["clients"],
             t2["run_stages"], eval_every=t2["eval_every"], **kw)
@@ -2635,16 +2756,14 @@ def run_cnn(torch, dev="cuda:0"):
         # VGG16's 1 - accuracy does not fall within 16 rounds on the
         # Non-IID split (0.8979 -> 0.9054 on an H100; its cross-entropy
         # rose too in a width-32 CPU run): that it falls is held on
-        # ResNet18's 64 rounds; VGG16 is held to the CPU run
+        # ResNet18's 32 rounds; VGG16 is held to the CPU run
         # (cnn_reference_check)
         if not all(math.isfinite(v) for v in vals) or \
                 (net == "resnet18" and not vals[-1] < vals[0]):
             raise AssertionError(f"{net}: objective {vals[0]} -> "
                                  f"{vals[-1]}: not finite or not lower")
-        want_rounds = t2["vgg_rounds"] if net == "vgg16" else \
-            int(t2["T1"] // t2["k1"])
-        if rep.rounds_total != want_rounds or \
-                rep.iters_total != want_rounds * int(t2["k1"]):
+        if rep.rounds_total != rounds or \
+                rep.iters_total != rounds * int(t2["k1"]):
             raise AssertionError(f"{net}: {rep.rounds_total} rounds, "
                                  f"{rep.iters_total} steps")
         expect_launches(net, counts,
@@ -2971,11 +3090,11 @@ def check_lm_update(torch, cfg, state, q) -> dict:
     return out
 
 
-def lm_state_diff(torch, start, a, b) -> dict:
+def lm_leaf_diffs(torch, start, a, b) -> dict:
     """Per leaf of the final states ``a`` (the card's) and ``b`` (the
-    CPU's), both from ``start``: ||Δa − Δb|| / ||Δb|| of the parameters'
-    updates (Δ = final − start) and ||a − b|| / ||b|| of the moments,
-    the largest of each over the leaves, with the leaf."""
+    CPU's), both from ``start``: {("params", path): ||Δa − Δb|| / ||Δb||}
+    of the parameters' updates (Δ = final − start) and {("opt", path):
+    ||a − b|| / ||b||} of the moments."""
     from repro_torch.utils.tree import tree_flatten_with_path
 
     def rel(x, y):
@@ -2990,12 +3109,21 @@ def lm_state_diff(torch, start, a, b) -> dict:
             ("opt", a["opt"], b["opt"], None)):
         la = tree_flatten_with_path(ka)[0]
         lb = tree_flatten_with_path(kb)[0]
-        worst = (0.0, None)
         for i, ((path, x), (_, y)) in enumerate(zip(la, lb)):
             if k0 is not None:
                 x, y = x.cpu() - k0[i][1], y - k0[i][1]
-            r = rel(x, y)
-            if r >= worst[0]:
+            out[(kind, path)] = rel(x, y)
+    return out
+
+
+def lm_state_diff(torch, start, a, b) -> dict:
+    """``lm_leaf_diffs``' largest parameter update and moment readings,
+    each with its leaf."""
+    out = {}
+    for kind in ("params", "opt"):
+        worst = (0.0, None)
+        for (k, path), r in lm_leaf_diffs(torch, start, a, b).items():
+            if k == kind and r >= worst[0]:
                 worst = (r, path)
         out[kind], out[kind + "_leaf"] = worst
     return out
@@ -3069,13 +3197,60 @@ def train_reference_check(torch, arch: str = "qwen3-14b",
         return TrainConfig(algo="stl_sc", eta1=c["eta1"], T1=c["T1"],
                            k1=c["k1"], n_stages=c["stages"], **kw)
 
-    def held(label, tcfg, state_tol, cpu, card, picks, fault):
+    floors = {}   # id of a CPU run -> its leaves' order floors
+
+    def held_to_order_floor(label, tcfg, state_tol, cpu, card, diff,
+                            control):
+        """Where a leaf misses ``state_tol``: the CPU run again on one
+        thread (its float32 sums in another order, nothing else changed)
+        gives each leaf's order floor, the reading of one CPU run against
+        the other; each leaf of the card's run is then held to the larger
+        of ``state_tol`` and ``ORDER_FLOOR_FACTOR`` times its floor. A
+        control is held to the floors its run's check found, or to
+        ``state_tol`` where that check needed none. (passed, reading)."""
+        if id(cpu) not in floors:
+            if control:
+                return False, diff
+            n = torch.get_num_threads()
+            torch.set_num_threads(1)
+            try:
+                again = run("cpu", tcfg)
+            finally:
+                torch.set_num_threads(n)
+            floors[id(cpu)] = lm_leaf_diffs(torch, base, again.state,
+                                            cpu.state)
+        floor = floors[id(cpu)]
+        card_leaf = lm_leaf_diffs(torch, base, card.state, cpu.state)
+        over = {k: (r, floor[k]) for k, r in card_leaf.items()
+                if r > max(state_tol, ORDER_FLOOR_FACTOR * floor[k])}
+        worst = max(card_leaf, key=lambda k: card_leaf[k] / max(
+            state_tol, ORDER_FLOOR_FACTOR * floor[k]))
+        diff["order_floor"] = {
+            "leaf": list(worst), "card": card_leaf[worst],
+            "floor": floor[worst],
+            "largest_floor": max(floor.values())}
+        log(f"[lm-check] {cfg.name} {label}: over {state_tol} on "
+            f"{sum(r > state_tol for r in card_leaf.values())} leaves; the "
+            f"CPU on one thread against the CPU: the order floor; the "
+            f"card's worst leaf against its floor {worst}: "
+            f"{card_leaf[worst]:.3g} against {floor[worst]:.3g} (held to "
+            f"max({state_tol}, {ORDER_FLOOR_FACTOR} x floor)): "
+            f"{'held' if not over else f'refused on {len(over)} leaves'}")
+        return not over, diff
+
+    def held(label, tcfg, state_tol, cpu, card, picks, fault,
+             control=False):
         """16b's state check of ``card`` against ``cpu`` (``fault`` the
-        card run's patch): (passed, reading)."""
+        card run's patch): (passed, reading). A leaf over ``state_tol``
+        in a run that routed no token apart is held to its order floor
+        (``held_to_order_floor``)."""
         diff = lm_state_diff(torch, base, card.state, cpu.state)
         ok = diff["params"] <= state_tol and diff["opt"] <= state_tol
         flips = picks_apart(torch, cfg, picks["cpu"], picks["card"], label)
         if not flips["calls"]:
+            if not ok:
+                return held_to_order_floor(label, tcfg, state_tol, cpu,
+                                           card, diff, control)
             return ok, diff
         diff.update(routing=flips)
         if not flips["explains"]:
@@ -3180,7 +3355,7 @@ def train_reference_check(torch, arch: str = "qwen3-14b",
         rel = max(abs(a.mean_loss / b.mean_loss - 1.0)
                   for a, b in zip(card.results, cpu.results))
         ok, diff = held(f"control {what}", tcfg_of(kw), state_tol, cpu,
-                        card, picks, fault)
+                        card, picks, fault, control=True)
         log(f"[lm-check] {cfg.name} control, {what} ({label}): mean losses "
             f"max rel diff {rel:.3g} (tol {tol}), final state: updates "
             f"{diff['params']:.3g} ({diff['params_leaf']}), moments "
@@ -3407,12 +3582,14 @@ def run_qwen3_training(torch, dev="cuda:0") -> dict:
 # 2 sequences of 64 tokens, 8 heads of 64, N = 32, chunk 64)
 SSD_TRAIN_CASES = {"mamba2 train": (2, 1024, 80, 64, 1, 128, 256),
                    "mamba2 smoke": (2, 64, 8, 64, 1, 32, 64)}
-# 17c: mamba2-2.7b at full width and depth through launch/train.main: 2
+# 17c: mamba2-2.7b at full width through launch/train.main, its depth cut
+# to 16 of 64 layers (since phase 19 joined the script: the run's time): 2
 # clients, 2 sequences of 1,024 tokens a client a step, stl_sc T1 8, k1 4,
 # 2 stages cut at 16 local steps (8 + 8, 3 rounds); the profiler traces 2
 # train steps after a warm-up one (a whole run's trace would be gigabytes)
-MAMBA2_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8, "k1": 4.0,
-                "stages": 2, "steps": 16, "eta1": 0.05, "profile_calls": 2}
+MAMBA2_TRAIN = {"layers": 16, "clients": 2, "batch": 2, "seq": 1024,
+                "T1": 8, "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.05,
+                "profile_calls": 2}
 # 17d: the checkpoint 17c wrote, behind launch/serve.main
 SERVE_CKPT = {"requests": 4, "slots": 4, "prompt_len": 300, "gen": 8,
               "max_seq_len": 2048}
@@ -3523,11 +3700,12 @@ def mamba2_step_work(cfg, q) -> dict:
 
 
 def run_mamba2_training(torch, tmp: Path) -> dict:
-    """Phase 17c: mamba2-2.7b at full width and depth (64 layers, bf16,
-    seed 0) through ``launch/train.main`` with ``--profile --profile-dir
-    --profile-calls --trace --ckpt-out``: the loss finite and its last
-    stage's mean below its first's, the launches of the path, the ledger
-    equal to rounds x clients x a replica's bytes, ms a step (the median
+    """Phase 17c: mamba2-2.7b at full width, its depth cut to 16 of 64
+    layers (bf16, seed 0), through ``launch/train.main`` with
+    ``--profile --profile-dir --profile-calls --trace --ckpt-out``: the
+    loss finite and its last stage's mean below its first's, the
+    launches of the path, the ledger equal to rounds x clients x a
+    replica's bytes, ms a step (the median
     of the untraced train steps after the first) against its bound
     (``mamba2_step_work``), peak memory, the skew table, device ms a step
     by kind from the profiler's window and the plain SSD backward's share
@@ -3542,9 +3720,13 @@ def run_mamba2_training(torch, tmp: Path) -> dict:
     from repro_torch.utils.tree import tree_leaves, tree_map
 
     q = MAMBA2_TRAIN
-    cfg = get_arch("mamba2-2.7b")
+    full = get_arch("mamba2-2.7b")
+    cfg = full.replace(n_layers=q["layers"])
+    log(f"[cut] phase 17c: mamba2-2.7b at full width, depth cut to "
+        f"{q['layers']} of {full.n_layers} layers")
     trace, prof_dir, ck = tmp / "train.json", tmp / "prof", tmp / "ck"
-    argv = ["--arch", "mamba2-2.7b", "--clients", str(q["clients"]),
+    argv = ["--arch", "mamba2-2.7b", "--layers", str(q["layers"]),
+            "--clients", str(q["clients"]),
             "--batch", str(q["batch"]), "--seq", str(q["seq"]),
             "--algo", "stl_sc", "--eta1", str(q["eta1"]),
             "--T1", str(q["T1"]), "--k1", str(q["k1"]),
@@ -3669,11 +3851,13 @@ def run_mamba2_training(torch, tmp: Path) -> dict:
     return out
 
 
-def serve_checkpoint(torch, ck: Path, tmp: Path, sums) -> dict:
-    """Phase 17d: 17c's checkpoint behind ``launch/serve.main(["--ckpt",
-    ..., "--trace", ..., "--profile"])`` on the card: every request served,
-    the restored params' per-leaf sums equal those of the consensus 17c
-    trained, the SSD launches equal 64 a multi-token prefill, each first
+def serve_checkpoint(torch, ck: Path, tmp: Path, sums,
+                     kname: str = "ssd") -> dict:
+    """Phase 17d (19c): 17c's checkpoint (19c's) behind
+    ``launch/serve.main(["--ckpt", ..., "--trace", ..., "--profile"])`` on
+    the card: every request served, the restored params' per-leaf sums
+    equal those of the consensus trained, ``kname`` launched once a layer
+    of its kind a multi-token prefill (the SSD scan 64 times), each first
     token equal to ``greedy_decode``'s on the restored params (later ones
     up to a near tie, as phase 10), the serve trace parses."""
     from unittest import mock
@@ -3722,18 +3906,18 @@ def serve_checkpoint(torch, ck: Path, tmp: Path, sums) -> dict:
             f"modeled {row['modeled_s']:.4e} s measured "
             f"{row['measured_s']:.4e} s skew {row['skew']:.2f}")
     if len(report.completed) != len(reqs) or \
-            counts["ssd"] != eng.cfg.n_layers * multi:
-        raise AssertionError(f"serve from the checkpoint: {counts['ssd']} "
-                             f"ssd launches for {multi} multi-token "
+            counts[kname] != kernel_layers(eng.cfg, kname) * multi:
+        raise AssertionError(f"serve from the checkpoint: {counts[kname]} "
+                             f"{kname} launches for {multi} multi-token "
                              f"prefills, {len(report.completed)} served")
     names = {e["name"] for e in json.load(open(strace))["traceEvents"]}
     if not {"serve_run", "decode_step", "profile.serve.prefill"} <= names:
         raise AssertionError(f"serve from the checkpoint: trace {names}")
-    compared, total = hold_to_greedy(torch, "mamba2-2.7b (checkpoint)",
+    compared, total = hold_to_greedy(torch, f"{eng.cfg.name} (checkpoint)",
                                      eng.params, eng.cfg, reqs,
                                      report.records, s["max_seq_len"])
     log(f"[serve-ckpt] tokens held to greedy_decode: {compared} of {total}")
-    out = {"wall_s": wall, "requests": len(reqs), "launches": counts["ssd"],
+    out = {"wall_s": wall, "requests": len(reqs), "launches": counts[kname],
            "multi_token_prefills": multi, "tokens_compared": compared,
            "tokens_total": total, "skew_table": report.profile.skew_table()}
     del eng, seen, report
@@ -3743,8 +3927,8 @@ def serve_checkpoint(torch, ck: Path, tmp: Path, sums) -> dict:
 
 def run_mamba2_phase(torch) -> dict:
     """Phase 17: 17a the SSD Function's gradients, 17b mamba2 SMOKE card
-    against CPU, 17c mamba2-2.7b training at full width and depth, 17d
-    serving its checkpoint. The checkpoint and traces go to a temporary
+    against CPU, 17c mamba2-2.7b training at full width (16 of 64 layers),
+    17d serving its checkpoint. The checkpoint and traces go to a temporary
     directory, removed at the end."""
     import tempfile
 
@@ -3878,6 +4062,7 @@ def check_mla_flash(torch) -> dict:
 DECODE_RANGES = {"attention": "layer.attention",
                  "attention.dequant": "layer.attention.dequant",
                  "moe": "layer.moe", "mlp": "layer.mlp",
+                 "rglru": "layer.rglru",
                  "moe.route": "moe.route", "moe.dispatch": "moe.dispatch",
                  "moe.experts": "moe.experts", "moe.combine": "moe.combine"}
 DECODE_PROFILE_STEPS = 4
@@ -3886,13 +4071,14 @@ DECODE_PROFILE_STEPS = 4
 def layer_ranges(torch):
     """Patches (one context) that open the ``DECODE_RANGES`` ranges of
     the layer's parts around ``attention.apply_attention``,
-    ``attention._dequant``, ``moe.apply_moe`` and the transformer's dense
-    ``apply_mlp``."""
+    ``attention._dequant``, ``moe.apply_moe``, ``rglru.apply_rglru`` and
+    the transformer's dense ``apply_mlp``."""
     from contextlib import ExitStack
     from unittest import mock
 
     from repro_torch.models import attention as A
     from repro_torch.models import moe as MOE
+    from repro_torch.models import rglru as RG
     from repro_torch.models import transformer as TF
 
     def ranged(fn, name):
@@ -3904,7 +4090,8 @@ def layer_ranges(torch):
     stack = ExitStack()
     for mod, attr, key in ((A, "apply_attention", "attention"),
                            (A, "_dequant", "attention.dequant"),
-                           (MOE, "apply_moe", "moe"), (TF, "apply_mlp", "mlp")):
+                           (MOE, "apply_moe", "moe"), (TF, "apply_mlp", "mlp"),
+                           (RG, "apply_rglru", "rglru")):
         stack.enter_context(mock.patch.object(
             mod, attr, ranged(getattr(mod, attr), DECODE_RANGES[key])))
     return stack
@@ -3952,7 +4139,7 @@ def profile_decode(torch, cfg, params, sched, long_prompt) -> dict:
         return out
     ms = res["by_kind_ms_per_step"]
     ms["other"] = res["kernel_ms_per_step"] - sum(
-        ms[k] for k in ("attention", "moe", "mlp"))
+        ms[k] for k in ("attention", "moe", "mlp", "rglru"))
     att = [e for e in prof.events() if e.name == DECODE_RANGES["attention"]]
     traced = sum(1 for e in att if e.device_time_total > 0)
     busy = busy_union_us(torch, prof) / (wall * 1e6)
@@ -3979,17 +4166,10 @@ def deepseek_serve_extra(torch, cfg, params, long_prompt, sched) -> dict:
     do), the share of assignments capacity dropped at the long prompt's
     prefill, layer by layer, and the decode profile
     (``profile_decode``)."""
-    from repro_torch.configs.base import ShapeConfig
     from repro_torch.models import transformer as TF
-    from repro_torch.serve import DeviceModel
 
-    dm = DeviceModel()
     n_long = len(long_prompt)
-    bounds = {f"prefill_{n}_bound_ms": dm.step_time_s(
-        cfg, ShapeConfig("p", n, 1, "prefill")) * 1e3 for n in (512, n_long)}
-    bounds["decode_step_bound_ms"] = dm.step_time_s(
-        cfg, ShapeConfig("d", sched.max_seq_len, sched.n_slots,
-                         "decode")) * 1e3
+    bounds = serve_bounds(cfg, n_long, sched)
     routes = []
     dev = torch.device("cuda:0")
     with torch.no_grad(), recording_routes(routes):
@@ -4291,6 +4471,478 @@ def run_moe_mla_phase(torch, floor) -> dict:
     return out
 
 
+# phase 19: RG-LRU and the frontend archs. 19a's SMOKE checks: the serving
+# path on the card against the CPU (recurrentgemma's 80-token prompt past
+# its 64-token window; the frontend archs' 16 embeddings before a 24-token
+# prompt), a used slot's prefill against a fresh one's, then 16b's training
+# check (dense and int8 Star) on the RG-LRU arch and on a frontend arch
+RG_SERVE_REFS = (("recurrentgemma-2b", 80), ("internvl2-2b", 24),
+                 ("musicgen-medium", 24))
+RG_TRAIN_REFS = ("recurrentgemma-2b", "musicgen-medium")
+# flash at the shapes phase 19's paths give it: recurrentgemma's local
+# layer (MQA, a group of 10 at D = 256, window 2,048) at the 4,608-token
+# prefill and at its training layer (2 x 1,024 tokens), internvl2's layer at
+# 256 patches + a 512-token prompt, musicgen's training layer (2 x (256
+# frames + 1,024 tokens), 24/24 heads of 64)
+RG_FLASH_CASES = {
+    "recurrentgemma local": (1, 4608, 10, 1, 256, "bf16", 2048, None),
+    "recurrentgemma train": (2, 1024, 10, 1, 256, "bf16", 2048, None),
+    "internvl2 prefill": (1, 768, 16, 8, 128, "bf16", None, None),
+    "musicgen train": (2, 1280, 24, 24, 64, "bf16", None, None),
+}
+# 19c: recurrentgemma-2b at full width and depth through launch/train.main,
+# 17c's schedule (eta1 0.05, T1 8, k1 4, 2 stages cut at 16 local steps);
+# the profiler traces one train step after a warm-up one
+RG_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8, "k1": 4.0,
+            "stages": 2, "steps": 16, "eta1": 0.05, "profile_calls": 1}
+# 19e: musicgen-medium at full width and depth with frontend batches (256
+# frames before 1,024 tokens): 16c's rate and k1 (eta1 0.03, k1 4), T1 8 so
+# that the 16 local steps span two stages, as 17c's do; no profiler window
+# (``--profile`` alone: each step's time, synchronised)
+MUSICGEN_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8,
+                  "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.03,
+                  "profile_calls": None}
+# 19d: the logits of a prefill with the frontend and without it must differ
+# by more than this share of the largest logit
+FRONTEND_MOVES = 5e-2
+
+
+def used_slot_check(torch, arch: str, n_prompt: int) -> dict:
+    """Phase 19a: on the card, ``arch``'s SMOKE config (float32): row 1 of
+    a two-row cache serves a prompt (a prefill, then 3 decode steps of both
+    rows) and then takes a second prompt. Its prefill's logits, and the
+    row's recurrent states and conv carries, equal those of a fresh
+    one-row cache's prefill of the second prompt, bit for bit."""
+    import numpy as np
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as TF
+
+    dev = torch.device("cuda:0")
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    params = TF.init_params(cfg, seed=0, device=dev)
+    fe, n_fe = seeded_frontend(torch, cfg)
+    fe = None if fe is None else fe.to(dev)
+    rng = np.random.RandomState(3)
+    first, second = (torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(1, n))).long().to(dev)
+        for n in (n_prompt, n_prompt - 7))
+    n_max = n_fe + n_prompt + 16
+    with torch.no_grad():
+        stacked = TF.init_cache(cfg, 2, n_max, device=dev)
+        TF.prefill(params, cfg, first, TF.cache_rows(stacked, 1, 2), fe)
+        toks = torch.full((2, 1), 5, dtype=torch.long, device=dev)
+        for _ in range(3):
+            TF.decode_step(params, cfg, toks, stacked)
+        got, _ = TF.prefill(params, cfg, second,
+                            TF.cache_rows(stacked, 1, 2), fe)
+        fresh = TF.init_cache(cfg, 1, n_max, device=dev)
+        want, _ = TF.prefill(params, cfg, second, fresh, fe)
+    torch.cuda.synchronize()
+    states = [(c, f) for kind, c, f in zip(cfg.layer_kinds(),
+                                           stacked["layers"], fresh["layers"])
+              if kind in "MR"]
+    equal = torch.equal(got, want) and all(
+        torch.equal(c[k][1:2], f[k]) for c, f in states for k in c)
+    log(f"[reference] {arch} smoke f32 on the card: a used row's prefill "
+        f"({second.shape[1]} tokens after {first.shape[1]} and 3 decode "
+        f"steps) against a fresh cache's: logits"
+        f"{' and recurrent states' if states else ''} "
+        f"{'bit-equal' if equal else 'DIFFER'} (max |logit diff| "
+        f"{float((got - want).abs().max()):.3g})")
+    if not equal:
+        raise AssertionError(f"{arch}: a used row's prefill differs from a "
+                             f"fresh one's")
+    return {"bit_equal": True, "recurrent_layers": len(states)}
+
+
+def serve_bounds(cfg, n_long: int, sched) -> dict:
+    """The prefill and decode-step bounds the serving engine prices
+    (``launch/flops.py`` through ``DeviceModel``), in ms."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.serve import DeviceModel
+
+    dm = DeviceModel()
+    n_fe = cfg.n_frontend_tokens if cfg.frontend else 0
+    out = {f"prefill_{n}_bound_ms": dm.step_time_s(
+        cfg, ShapeConfig("p", n + n_fe, 1, "prefill")) * 1e3
+        for n in (512, n_long)}
+    out["decode_step_bound_ms"] = dm.step_time_s(
+        cfg, ShapeConfig("d", sched.max_seq_len, sched.n_slots,
+                         "decode")) * 1e3
+    return out
+
+
+def rg_serve_extra(torch, cfg, params, long_prompt, sched) -> dict:
+    """19b's extra readings: the prefill and decode-step bounds, a slot's
+    recurrent state (the R layers' conv carries and float32 states) in
+    bytes against its attention cache (the local layers' window-long
+    rings), and the decode profile (``profile_decode``)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import rglru as RG
+
+    bounds = serve_bounds(cfg, len(long_prompt), sched)
+    nbytes = lambda d: sum(t.numel() * t.element_size() for t in d.values())
+    kinds = cfg.layer_kinds()
+    state = kinds.count("R") * nbytes(RG.init_rglru_cache(
+        cfg, 1, torch.bfloat16, device="meta"))
+    attn = sum(nbytes(A.init_attention_cache(
+        cfg, k == "L", 1, sched.max_seq_len, torch.bfloat16, device="meta"))
+        for k in kinds if k in "GL")
+    log(f"[serve] {cfg.name}: bounds (launch/flops via DeviceModel) "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bounds.items())
+        + f"; a slot holds {state / 1e6:.3f} MB of recurrent state "
+        f"({kinds.count('R')} RG-LRU layers) and {attn / 1e6:.3f} MB of "
+        f"attention cache ({sum(k in 'GL' for k in kinds)} local layers, "
+        f"rings of {cfg.attention.window})")
+    return {**bounds, "recurrent_state_bytes_per_slot": state,
+            "attention_cache_bytes_per_slot": attn,
+            "decode_profile": profile_decode(torch, cfg, params, sched,
+                                             long_prompt)}
+
+
+def vlm_serve_extra(torch, cfg, params, long_prompt, sched) -> dict:
+    """19d's extra readings: the bounds; the last position's logits of a
+    64-token prefill with the 256 patch embeddings against one without
+    them (they must differ by more than ``FRONTEND_MOVES`` of the largest
+    logit: the frontend is not dropped); the engine's modeled prefill
+    seconds of a frontend request equal the price of prompt + 256 tokens,
+    above the text-only request's."""
+    import numpy as np
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.models import transformer as TF
+    from repro_torch.serve import DeviceModel, Request, ServeEngine
+
+    dev = torch.device("cuda:0")
+    fe, n_fe = seeded_frontend(torch, cfg)
+    prompt = np.asarray(long_prompt[:64])
+    lasts = []
+    with torch.no_grad():
+        for f in (fe.to(dev, torch.bfloat16), None):
+            cache = TF.init_cache(cfg, 1, n_fe + 72, device=dev)
+            logits, _ = TF.prefill(params, cfg, torch.as_tensor(
+                prompt[None], dtype=torch.long, device=dev), cache, f)
+            lasts.append(logits[0, -1, :cfg.vocab_size].float())
+            del cache, logits
+    moved = float((lasts[0] - lasts[1]).abs().max()
+                  / lasts[1].abs().max())
+    eng = ServeEngine(cfg, params, scheduler=sched)
+    with_fe = Request(id=0, arrival_s=0.0, prompt=prompt, n_out=1,
+                      frontend=fe[0].numpy())
+    text = Request(id=1, arrival_s=0.0, prompt=prompt, n_out=1)
+    want = DeviceModel().step_time_s(cfg, ShapeConfig(
+        "serve_prefill", len(prompt) + n_fe, 1, "prefill"))
+    priced = eng.prefill_s(with_fe)
+    bounds = serve_bounds(cfg, len(long_prompt), sched)
+    log(f"[serve] {cfg.name}: the first step's logits with the {n_fe} patch "
+        f"embeddings against without them: max |diff| {moved:.3g} of the "
+        f"largest logit (must exceed {FRONTEND_MOVES}); modeled prefill of "
+        f"a {len(prompt)}-token request {priced * 1e3:.4f} ms with the "
+        f"frontend ({len(prompt) + n_fe} tokens priced), "
+        f"{eng.prefill_s(text) * 1e3:.4f} ms without; bounds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in bounds.items()))
+    if not moved > FRONTEND_MOVES:
+        raise AssertionError(f"{cfg.name}: the frontend moves the logits by "
+                             f"{moved} only")
+    if priced != want or not priced > eng.prefill_s(text):
+        raise AssertionError(f"{cfg.name}: the engine prices a frontend "
+                             f"prefill at {priced}, not {want}")
+    return {**bounds, "frontend_moves_logits": moved,
+            "prefill_s_with_frontend": priced,
+            "prefill_s_text_only": eng.prefill_s(text)}
+
+
+def lm_step_work(cfg, q) -> dict:
+    """The least work of one local step of 19c / 19e: the GEMMs' forward
+    and backward (6 FLOPs a matmul parameter a token: every layer's 2-D
+    weights but the RG-LRU conv, the unembedding, the frontend projector
+    over the frontend positions only) and the layers' remat forward (2),
+    and attention as 16c counts it (the flash forward twice, the
+    backward's 10·D a pair) over the window each layer sees; tokens
+    include the frontend positions."""
+    from repro_torch.launch.flops import _attn_pairs
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    shapes = TF.init_params_shape(cfg)
+    layers = sum(t.numel() for path, t in tree_flatten_with_path(
+        shapes["layers"])[0] if t.dim() == 2 and "conv" not in path)
+    head = shapes["embed" if cfg.tie_embeddings else "unembed"].numel()
+    n_fe = cfg.n_frontend_tokens if cfg.frontend else 0
+    proj = shapes["proj_frontend"].numel() if cfg.frontend else 0
+    seqs = q["clients"] * q["batch"]
+    S = n_fe + q["seq"]
+    tokens = seqs * S
+    gemm = tokens * (6 * (layers + head) + 2 * layers) \
+        + seqs * n_fe * 6 * proj
+    att = cfg.attention
+    attn = sum(seqs * att.n_heads * att.head_dim * (4 + 4 + 10)
+               * _attn_pairs(S, att.window if k == "L" else None, "prefill")
+               for k in cfg.layer_kinds() if k in "GL")
+    return {"gemm_flops": gemm, "attn_flops": attn,
+            "bound_ms": (gemm + attn) / BF16_FLOPS * 1e3}
+
+
+def rglru_scan_ms(torch, cfg, q) -> dict:
+    """The RG-LRU scan at 19c's training layer (``batch`` x ``seq`` x
+    lru, float32, r and i in (0, 1) as the sigmoids give them, a_param as
+    the init): device ms of the forward (the doubling passes, under grad
+    as training runs it) and of the forward and backward, against the
+    forward's bound (xb, r and i read, h written, float32); and the scan's
+    device ms a local step: each R layer of each client runs the forward
+    twice (the forward and its remat recompute) and the backward once."""
+    from repro_torch.models import rglru as RG
+
+    dev = torch.device("cuda:0")
+    B, S, W = q["batch"], q["seq"], cfg.rglru.lru_width or cfg.d_model
+    g = torch.Generator(device=dev).manual_seed(5)
+    xb, r, i = (torch.randn((B, S, W), generator=g, device=dev)
+                for _ in range(3))
+    r, i = torch.sigmoid(r), torch.sigmoid(i)
+    a_param = torch.full((W,), 4.0, device=dev)
+    ins = [xb, r, i, a_param]
+    for t in ins:
+        t.requires_grad_()
+    dh = torch.randn((B, S, W), generator=g, device=dev)
+
+    def fwd():
+        return RG._rg_lru_scan(xb, r, i, a_param)[0]
+
+    def fwd_bwd():
+        return torch.autograd.grad(fwd(), ins, dh)
+
+    f_ms = device_ms(torch, fwd, batch=2, reps=5)
+    fb_ms = device_ms(torch, fwd_bwd, batch=2, reps=5)
+    n_r = cfg.layer_kinds().count("R")
+    step = q["clients"] * n_r * (2 * f_ms + (fb_ms - f_ms))
+    bms, by = bound_ms(4 * 4 * B * S * W, 0)
+    log(f"[rg-train] the RG-LRU scan at ({B}, {S}, {W}) float32: forward "
+        f"{f_ms:.3f} ms (bound {bms:.4f} ms, {by}), forward + backward "
+        f"{fb_ms:.3f} ms; {step:.2f} ms a local step ({n_r} R layers x "
+        f"{q['clients']} clients x (2 forwards + a backward))")
+    return {"shape": [B, S, W], "fwd_ms": f_ms, "fwd_bwd_ms": fb_ms,
+            "fwd_bound_ms": bms, "ms_per_step": step}
+
+
+def run_train_main(torch, tmp: Path, arch: str, q: dict, tag: str,
+                   ckpt: bool = False, update_check: bool = False) -> dict:
+    """Phases 19c and 19e: ``arch`` at full width and depth (bf16, seed 0)
+    through ``launch/train.main`` with ``--profile --profile-dir
+    --profile-calls`` (and ``--ckpt-out``): 2 clients, 2 sequences of 1,024
+    tokens a client a step (after a frontend arch's embeddings), dense
+    Star. The loss finite and its last stage's mean below its first's, the
+    launches (flash twice an attention layer a client a step, the update
+    once a type group a client a step), the ledger, ms a step (the median
+    of the untraced train steps after the first) against its bound
+    (``lm_step_work``), peak memory, and where ``q["profile_calls"]``
+    opens a profiler window, device ms a step by kind over it (GEMMs, the
+    flash forward, the plain attention backward, the update, the loss's
+    log-softmax); with ``update_check``,
+    one client's update at the trained state as 16c checks it."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.launch import train as TT
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    cfg = get_arch(arch)
+    argv = ["--arch", arch, "--clients", str(q["clients"]),
+            "--batch", str(q["batch"]), "--seq", str(q["seq"]),
+            "--algo", "stl_sc", "--eta1", str(q["eta1"]),
+            "--T1", str(q["T1"]), "--k1", str(q["k1"]),
+            "--stages", str(q["stages"]), "--steps", str(q["steps"]),
+            "--profile"]
+    if q["profile_calls"]:
+        argv += ["--profile-dir", str(tmp / "prof"),
+                 "--profile-calls", str(q["profile_calls"])]
+    if ckpt:
+        argv += ["--ckpt-out", str(tmp / "ck")]
+    log(f"[{tag}] launch.train.main {' '.join(argv)}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    t0 = time.monotonic()
+    ds = TT.main(argv)
+    torch.cuda.synchronize()
+    t_end = time.monotonic()
+    counts = kernels.launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prof = ds.profile
+    steps = [r for r in prof.records if r.name == "train_step"]
+    untraced = [r.measured_s for r in steps[1:] if not r.attrs.get("traced")]
+    ms_step = statistics.median(untraced) * 1e3
+    work = lm_step_work(cfg, q)
+    losses = [r.mean_loss for r in ds.results]
+    n_params = sum(t[0].numel() for t in tree_leaves(ds.state["params"]))
+    per_client = sum(t[0].numel() * t.element_size()
+                     for t in tree_leaves(ds.state["params"]))
+    state_gb = sum(t.numel() * t.element_size() for t in tree_leaves(
+        [ds.state["params"], ds.state["opt"]])) / 1e9
+    n_fe = cfg.n_frontend_tokens if cfg.frontend else 0
+    log(f"[{tag}] {arch}, {cfg.n_layers} layers: {n_params} parameters a "
+        f"client, state {state_gb:.2f} GB; {ds.iters_total} local steps, "
+        f"{ds.rounds_total} rounds; main() {t_end - t0:.2f} s; "
+        f"{ms_step:.2f} ms a step (median of {len(untraced)} untraced "
+        f"steps; the first {steps[0].measured_s * 1e3:.1f} ms) against a "
+        f"{work['bound_ms']:.2f} ms bound ({work['gemm_flops'] / 1e12:.2f} "
+        f"TFLOP of GEMMs, {work['attn_flops'] / 1e12:.3f} TFLOP of "
+        f"attention at 989 TFLOP/s; {n_fe} frontend + {q['seq']} tokens a "
+        f"sequence); eta1 {q['eta1']}; stage mean losses "
+        f"{[round(v, 4) for v in losses]}; peak memory {peak_gb:.2f} GB; "
+        f"comm bytes {ds.comm_bytes_total}; launches {counts}")
+    if not all(math.isfinite(v) for v in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"{arch} training: stage losses {losses}")
+    if ds.comm_bytes_total != ds.rounds_total * q["clients"] * per_client:
+        raise AssertionError(f"{arch} training: ledger "
+                             f"{ds.comm_bytes_total}")
+    want = lm_launches(cfg, ds, q["clients"], 0)
+    per_step = {k: want[k] // ds.iters_total
+                for k in ("flash_attention", "fused_sgd_update")}
+    if per_step != q["launches_per_step"]:
+        raise AssertionError(f"{arch} training: the path's launches "
+                             f"{per_step} a step, not "
+                             f"{q['launches_per_step']}")
+    expect_launches(f"{arch} training", counts, want)
+    out = {"params_per_client": n_params, "state_gb": state_gb,
+           "iters": ds.iters_total, "rounds": ds.rounds_total,
+           "ms_per_step": ms_step,
+           "first_step_ms": steps[0].measured_s * 1e3, **work,
+           "eta1": q["eta1"], "stage_losses": losses, "peak_gb": peak_gb,
+           "comm_bytes": ds.comm_bytes_total, "launches": counts,
+           "launches_per_step": per_step, "skew_table": prof.skew_table()}
+    n_traced = sum(1 for r in prof.records if r.attrs.get("traced")
+                   and r.name == "train_step")
+    kinds = None if not n_traced else device_ms_by_kind(
+        torch, prof.profiler, n_traced,
+        {"gemm": GEMM_KERNELS, "flash_forward": ("flash_fwd",),
+         "fused_update": ("fused_sgd_update",),
+         "loss_log_softmax": ("LogSoftMax",)},
+        {"attention_backward": "flash_attention.backward"})
+    if kinds is None:
+        why = "no CUDA events traced" if n_traced else "no profiler window"
+        log(f"[{tag}] device time by kind not measured ({why})")
+    else:
+        by = kinds["by_kind_ms_per_step"]
+        traced_ms = statistics.median(r.measured_s for r in steps
+                                      if r.attrs.get("traced")) * 1e3
+        window_ms = sum(r.measured_s for r in prof.records
+                        if r.attrs.get("traced")) * 1e3
+        busy = 100 * busy_union_us(torch, prof.profiler) / 1e3 / window_ms
+        out.update(profile={k: v for k, v in kinds.items() if k != "top"},
+                   traced_step_ms=traced_ms, busy_union_pct=busy)
+        log(f"[{tag}] profile of {n_traced} traced train steps "
+            f"({traced_ms:.2f} ms a traced step): "
+            f"{kinds['kernels_per_step']:.0f} kernels a step, a kernel "
+            f"running {busy:.1f}% of the window, device "
+            f"{kinds['kernel_ms_per_step']:.2f} ms a step; by kind: "
+            + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
+            + " ms a step (the attention backward's products are among "
+            "the GEMMs too)")
+        for line in kinds["top"]:
+            log(f"[{tag}]   {line}")
+    if ckpt:
+        # per-leaf float64 sums of the consensus the checkpoint holds (before
+        # the update check, which steps client 0's rows in place)
+        consensus = tree_map(lambda p: torch.mean(p, dim=0),
+                             ds.state["params"])
+        out["consensus_sums"] = [float(t.double().sum())
+                                 for t in tree_leaves(consensus)]
+        del consensus
+    torch.cuda.empty_cache()
+    if update_check:
+        out["update_check"] = check_lm_update(torch, cfg, ds.state, q)
+    del ds, prof
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_rglru_frontend_phase(torch, floor) -> dict:
+    """Phase 19: 19a the card against the CPU at SMOKE width (serving
+    recurrentgemma-2b, internvl2-2b and musicgen-medium, a used slot's
+    prefill; training recurrentgemma and musicgen under dense and int8
+    Star), flash at the phase's new shapes; 19b recurrentgemma-2b served at
+    full width and depth; 19c recurrentgemma-2b trained at full width and
+    depth, then its checkpoint served; 19d internvl2-2b served with
+    frontend requests; 19e musicgen-medium trained with frontend batches.
+    The training kernels at the (2, n) blocks 19a's int8 rounds hand them
+    that earlier phases did not."""
+    import tempfile
+
+    from repro_torch.configs import get_arch
+
+    out = {"serve_check": {}, "used_slot": {}, "train_check": {}}
+    t0 = time.monotonic()
+
+    def lap(part):
+        nonlocal t0
+        log(f"[time] phase {part}: {time.monotonic() - t0:.1f} s")
+        t0 = time.monotonic()
+
+    for arch, n_prompt in RG_SERVE_REFS:
+        out["serve_check"][arch] = serve_reference_check(torch, arch,
+                                                         n_prompt)
+        out["used_slot"][arch] = used_slot_check(torch, arch, n_prompt)
+    for arch in RG_TRAIN_REFS:
+        out["train_check"][arch] = train_reference_check(
+            torch, arch, runs=("dense star", "int8 star"),
+            control=arch == "recurrentgemma-2b")
+    out["flash"] = check_flash(torch, RG_FLASH_CASES)
+    torch.cuda.empty_cache()
+    lap("19a")
+    out["serve_rg"] = serve_full_width(torch, "recurrentgemma-2b",
+                                       rg_serve_extra)
+    torch.cuda.empty_cache()
+    lap("19b")
+    cfg = get_arch("recurrentgemma-2b")
+    q = dict(RG_TRAIN, launches_per_step={
+        "flash_attention": 2 * RG_TRAIN["clients"]
+        * kernel_layers(cfg, "flash_attention"),
+        "fused_sgd_update": 2 * RG_TRAIN["clients"]})
+    with tempfile.TemporaryDirectory() as d:
+        tmp = Path(d)
+        train = run_train_main(torch, tmp, "recurrentgemma-2b", q, "rg-train",
+                               ckpt=True, update_check=True)
+        sums = train.pop("consensus_sums")
+        train["scan"] = rglru_scan_ms(torch, cfg, q)
+        train["scan_share"] = train["scan"]["ms_per_step"] \
+            / train["ms_per_step"]
+        out["train_rg"] = train
+        out["serve_ckpt"] = serve_checkpoint(torch, tmp / "ck", tmp, sums,
+                                             "flash_attention")
+    torch.cuda.empty_cache()
+    lap("19c")
+    out["serve_vlm"] = serve_full_width(torch, "internvl2-2b",
+                                        vlm_serve_extra)
+    torch.cuda.empty_cache()
+    lap("19d")
+    cfg = get_arch("musicgen-medium")
+    q = dict(MUSICGEN_TRAIN, launches_per_step={
+        "flash_attention": 2 * MUSICGEN_TRAIN["clients"] * cfg.n_layers,
+        "fused_sgd_update": MUSICGEN_TRAIN["clients"]})
+    with tempfile.TemporaryDirectory() as d:
+        out["train_audio"] = run_train_main(torch, Path(d),
+                                            "musicgen-medium", q,
+                                            "audio-train")
+    torch.cuda.empty_cache()
+    lap("19e")
+    # the blocks 19a's int8 rounds hand quantize and dequant_mean that the
+    # earlier phases' did not
+    seen = set(lm_path_shapes().values())
+    for arch, label in zip(("mamba2-2.7b", "phi3.5-moe-42b-a6.6b",
+                            "minicpm3-4b"), ("mamba2", "phi35", "minicpm3")):
+        seen.update(lm_path_shapes(arch, label).values())
+    shapes = {}
+    for arch, label in zip(RG_TRAIN_REFS, ("rglru", "musicgen")):
+        for key, shape in lm_path_shapes(arch, label).items():
+            if shape not in seen:
+                shapes[key] = shape
+                seen.add(shape)
+    out["path_rows"] = check_kernels(torch, shapes, floor)
+    out["path_shapes"] = shapes
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -4310,7 +4962,7 @@ def main() -> int:
     log(smi)
 
     # phase 2: build
-    t0 = time.monotonic()
+    t_start = t0 = time.monotonic()
     build.library()
     log(f"[build] kernels built and loaded in "
         f"{time.monotonic() - t0:.2f} s ({build.build()})")
@@ -4348,22 +5000,27 @@ def main() -> int:
     async_profile = profile_runtime_async(torch)
     cnn_profile = profile_cnn(torch)
     torch.cuda.empty_cache()
+    log(f"[time] phases 2-4: {time.monotonic() - t_start:.1f} s")
 
     # phases 5-7: flash attention, then the gemma2 serving path
+    t0 = time.monotonic()
     flash = check_flash(torch)
     serve_reference_check(torch, "gemma2-27b", 80)
     torch.cuda.empty_cache()
     serve = serve_full_width(torch, "gemma2-27b")
     launches["flash_attention"] = serve["launches"]
     torch.cuda.empty_cache()
+    log(f"[time] phases 5-7: {time.monotonic() - t0:.1f} s")
 
     # phases 8-10: the SSD kernel, then the mamba2 serving path
+    t0 = time.monotonic()
     ssd_rows = check_ssd(torch, ssd_passes)
     serve_reference_check(torch, "mamba2-2.7b", 100)
     torch.cuda.empty_cache()
     serve_m = serve_full_width(torch, "mamba2-2.7b")
     launches["ssd"] = serve_m["launches"]
     torch.cuda.empty_cache()
+    log(f"[time] phases 8-10: {time.monotonic() - t0:.1f} s")
 
     # phases 11-13: the adaptive period, then the event runtime
     t0 = time.monotonic()
@@ -4419,8 +5076,8 @@ def main() -> int:
     log(f"[time] phase 16: {time.monotonic() - t0:.1f} s")
 
     # phase 17: Mamba2 training — the SSD Function's gradients on the card,
-    # mamba2 SMOKE card against CPU, mamba2-2.7b at full width and depth
-    # through launch/train, then serving its checkpoint
+    # mamba2 SMOKE card against CPU, mamba2-2.7b at full width (16 of 64
+    # layers) through launch/train, then serving its checkpoint
     t0 = time.monotonic()
     m2 = run_mamba2_phase(torch)
     m2_shapes = lm_path_shapes("mamba2-2.7b", "mamba2")
@@ -4454,7 +5111,29 @@ def main() -> int:
                                     + mm["serve_gemma3"]["launches"])
     log(f"[time] phase 18: {time.monotonic() - t0:.1f} s")
 
-    # phase 19: summary
+    # phase 19: RG-LRU and the frontend archs — SMOKE card against CPU
+    # (serving, a used slot, training), flash at the new shapes,
+    # recurrentgemma-2b served and trained at full width and depth (and its
+    # checkpoint served), internvl2-2b served with frontend requests,
+    # musicgen-medium trained with frontend batches
+    t0 = time.monotonic()
+    rg = run_rglru_frontend_phase(torch, floor)
+    path_rows.update(rg.pop("path_rows"))
+    path_shapes.update(rg.pop("path_shapes"))
+    # the launches of 19a's card training runs, 19b's, 19c's checkpoint's
+    # and 19d's serving runs, and 19c's and 19e's main runs
+    for part in (*[v for c in rg["train_check"].values()
+                   for v in c["launches"].values()],
+                 rg["train_rg"]["launches"], rg["train_audio"]["launches"]):
+        for k in (*TRAIN_KERNELS, "flash_attention"):
+            launches[k] += part[k]
+    launches["flash_attention"] += (rg["serve_rg"]["launches"]
+                                    + rg["serve_ckpt"]["launches"]
+                                    + rg["serve_vlm"]["launches"])
+    log(f"[time] phase 19: {time.monotonic() - t0:.1f} s")
+    log(f"[time] phases 2-19: {time.monotonic() - t_start:.1f} s")
+
+    # phase 20: summary
     meta = {
         "fused_sgd_update": ("src/repro_torch/kernels/csrc/fused_update.cu",
                              "src/repro/kernels/fused_update/kernel.py:33"),
@@ -4506,6 +5185,7 @@ def main() -> int:
             out[-1]["lm_client_tree"] = lm["update_check"]
             out[-1]["mamba2_client_tree"] = m2["train"]["update_check"]
             out[-1]["moe_client_tree"] = mm["train"]["update_check"]
+            out[-1]["rglru_client_tree"] = rg["train_rg"]["update_check"]
         if kname == "quantize_kernel":   # the scalar instantiation
             out[-1]["odd_view"] = {
                 label: {"ms": rows[("quantize_kernel odd view", label)]["ms"]}
@@ -4521,11 +5201,14 @@ def main() -> int:
                                    + [r["max_abs_err"] for r in
                                       mm["flash"].values()]
                                    + [r["max_abs_err"] for r in
-                                      mm["mla_flash"].values()]),
+                                      mm["mla_flash"].values()]
+                                   + [r["max_abs_err"] for r in
+                                      rg["flash"].values()]),
                 "ms": g["ms"], "plain_ms": g["plain_ms"],
                 "bound_ms": g["bound_ms"], "bound_by": g["bound_by"],
                 "library_ms": g["library_ms"], "shape": g["shape"],
-                "shapes": {**flash, **mm["flash"]}, "train": flash_grad,
+                "shapes": {**flash, **mm["flash"], **rg["flash"]},
+                "train": flash_grad,
                 "mla_shapes": mm["mla_flash"],
                 "train_launches": lm["launches"]["flash_attention"]
                 + sum(v["flash_attention"]
@@ -4537,6 +5220,18 @@ def main() -> int:
                     "smoke_train": sum(
                         v["flash_attention"]
                         for c in mm["train_check"].values()
+                        for v in c["launches"].values())},
+                "rglru_frontend_launches": {
+                    "serve_recurrentgemma": rg["serve_rg"]["launches"],
+                    "serve_recurrentgemma_ckpt": rg["serve_ckpt"]["launches"],
+                    "serve_internvl2": rg["serve_vlm"]["launches"],
+                    "train_recurrentgemma":
+                        rg["train_rg"]["launches"]["flash_attention"],
+                    "train_musicgen":
+                        rg["train_audio"]["launches"]["flash_attention"],
+                    "smoke_train": sum(
+                        v["flash_attention"]
+                        for c in rg["train_check"].values()
                         for v in c["launches"].values())}})
     m = ssd_rows["layer"]  # mamba2-2.7b's layer at a 4,096-token prefill
     out.append({"name": "ssd", "route": "cuda",
@@ -4558,7 +5253,7 @@ def main() -> int:
                     "adaptive": adaptive, "runtime_sync": runtime_sync,
                     "runtime_async": runtime_async, "hierarchical": hier,
                     "cnn": cnn_run, "lm_train": lm, "mamba2": m2,
-                    "moe_mla": mm, "card": smi}))
+                    "moe_mla": mm, "rglru_frontend": rg, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

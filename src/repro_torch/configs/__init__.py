@@ -1,10 +1,8 @@
 """Architecture registry of the port: ``--arch <id>`` resolves here.
 
 Each module exposes ``FULL`` (the published config) and ``SMOKE`` (a
-reduced variant of the same family), copied from the JAX package. Only
-archs whose layers the port's ``models/transformer.py`` builds are
-served; every other name the JAX package knows raises and names the
-ROADMAP item it waits for.
+reduced variant of the same family), copied from the JAX package. Every
+arch the JAX package knows resolves here.
 """
 from repro_torch.configs.base import (
     SHAPES,
@@ -17,24 +15,21 @@ from repro_torch.configs.base import (
     TrainConfig,
 )
 from repro_torch.configs import (deepseek_v2_236b, gemma2_27b, gemma3_12b,
-                                 mamba2_2_7b, minicpm3_4b, phi35_moe,
-                                 qwen3_14b)
+                                 internvl2_2b, mamba2_2_7b, minicpm3_4b,
+                                 musicgen_medium, phi35_moe, qwen3_14b,
+                                 recurrentgemma_2b)
 
 ARCHS = {
     "deepseek-v2-236b": deepseek_v2_236b,
     "gemma2-27b": gemma2_27b,
     "gemma3-12b": gemma3_12b,
+    "internvl2-2b": internvl2_2b,
     "mamba2-2.7b": mamba2_2_7b,
     "minicpm3-4b": minicpm3_4b,
+    "musicgen-medium": musicgen_medium,
     "phi3.5-moe-42b-a6.6b": phi35_moe,
     "qwen3-14b": qwen3_14b,
-}
-
-# archs of the JAX package the port cannot build yet -> what they wait for
-WAITING = {
-    "musicgen-medium": "frontend archs (ROADMAP queue 1: frontend archs)",
-    "internvl2-2b": "frontend archs (ROADMAP queue 1: frontend archs)",
-    "recurrentgemma-2b": "RG-LRU layers (ROADMAP queue 1: RG-LRU)",
+    "recurrentgemma-2b": recurrentgemma_2b,
 }
 
 # Archs whose base attention is quadratic-full: long_500k runs their
@@ -51,9 +46,6 @@ LONG_WINDOW = 8192
 
 
 def get_arch(name: str, smoke: bool = False) -> ArchConfig:
-    if name in WAITING:
-        raise NotImplementedError(
-            f"arch {name!r} is not ported yet: it waits for {WAITING[name]}")
     if name not in ARCHS:
         raise KeyError(f"unknown arch {name!r}; choose from {sorted(ARCHS)}")
     mod = ARCHS[name]
@@ -91,7 +83,6 @@ __all__ = [
     "ShapeConfig",
     "SWA_VARIANT_FOR_LONG",
     "TrainConfig",
-    "WAITING",
     "arch_for_shape",
     "get_arch",
 ]

@@ -42,7 +42,6 @@ from repro_torch.comm.reducer import DenseMean, reduce_streaming
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import _copy_broadcast_, resolve_device
 from repro_torch.engine.topology import Hierarchical
-from repro_torch.models import attention as A
 from repro_torch.models import transformer as TF
 from repro_torch.optim import make_optimizer
 from repro_torch.utils.rng import TorchKey
@@ -62,13 +61,12 @@ def _needs_mesh(what: str):
 
 def lm_loss(params, cfg: ArchConfig, batch):
     """Next-token CE. params: the grouped layout; batch: {"tokens",
-    "labels": (B, S) integer tensors}."""
-    if batch.get("frontend") is not None:
-        raise A._not_ported("frontend archs")
+    "labels": (B, S) integer tensors} [+ "frontend": (B, n_fe,
+    frontend_dim)]."""
     logits, aux = TF.forward(TF.layer_views(params, cfg), cfg,
-                             batch["tokens"])
+                             batch["tokens"], batch.get("frontend"))
     S = batch["labels"].shape[1]
-    logits = logits[:, -S:, :]
+    logits = logits[:, -S:, :]   # drop the frontend positions
     logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
     nll = -torch.gather(logp, -1, batch["labels"][..., None].long())[..., 0]
     return torch.mean(nll) + aux
@@ -237,7 +235,8 @@ def build_train_steps(cfg: ArchConfig, device=None, *,
 
     train_step_local(state, batch, eta) -> (state, {"loss"}), in place;
         batch leaves (C, B, S) on the state's device ((C, data_shards,
-        per_shard, S) in pod-client mode).
+        per_shard, S) in pod-client mode), a frontend arch's
+        ``"frontend"`` leaf (C, B, n_fe, frontend_dim).
     sync_step(state) -> state: ``build_sync_step(reducer,
         streaming=streaming, rng=rng)``, or with ``inter_reducer`` (and a
         ``client_axis`` holding ``"pod"``, e.g. ``("pod", "data")``) the

@@ -2,9 +2,10 @@
 
 The port of ``src/repro/core/serving.py:22-69``. A prefill runs the prompt
 through an empty cache (one flash-attention launch per attention layer,
-one SSD-kernel launch per Mamba2 layer); a serve step decodes ONE new
-token per batch row against the cache (ring buffer of the window for local
-layers, the recurrent state update for Mamba2 layers). Sharded serving
+one SSD-kernel launch per Mamba2 layer), a frontend arch's embeddings
+first; a serve step decodes ONE new token per batch row against the cache
+(ring buffer of the window for local layers, the recurrent state update
+for Mamba2 and RG-LRU layers). Sharded serving
 (``serve_shardings``) waits for the sharding slice.
 """
 from __future__ import annotations
@@ -25,10 +26,11 @@ def build_serve_step(cfg: ArchConfig):
 
 
 def build_prefill_step(cfg: ArchConfig):
-    """prefill_step(params, cache, tokens) -> (logits, cache)."""
+    """prefill_step(params, cache, tokens, frontend=None) -> (logits,
+    cache)."""
 
-    def prefill_step(params, cache, tokens):
-        return TF.prefill(params, cfg, tokens, cache)
+    def prefill_step(params, cache, tokens, frontend=None):
+        return TF.prefill(params, cfg, tokens, cache, frontend)
 
     return prefill_step
 
@@ -40,19 +42,21 @@ def _top2_margin(logits):
 
 @torch.no_grad()
 def greedy_decode(params, cfg: ArchConfig, prompt, n_steps: int,
-                  max_len: int):
+                  max_len: int, frontend=None):
     """Simple reference decode loop (tests, ``chip_smoke.py``).
 
     The per-request ground truth the continuous-batching engine
     (``repro_torch.serve``) is checked against. prompt: (B, S) integer on
     the params' device; ``max_len`` sizes the KV cache and must cover
-    prompt + generation. Returns the (B, n_steps) tokens and the
+    prompt + generation (+ ``cfg.n_frontend_tokens`` when ``frontend``
+    embeddings are passed: they occupy cache positions like text tokens).
+    Returns the (B, n_steps) tokens and the
     (B, n_steps) gap between the top two logits each token was picked
     from (how close the pick was to a tie).
     """
     B = prompt.shape[0]
     cache = TF.init_cache(cfg, B, max_len, device=prompt.device)
-    logits, cache = TF.prefill(params, cfg, prompt, cache)
+    logits, cache = TF.prefill(params, cfg, prompt, cache, frontend)
     last = logits[:, -1:]
     del logits
     out, margins = [], []

@@ -35,7 +35,6 @@ from repro_torch.core.simulate import resolve_device
 from repro_torch.core.stl_sgd import StagewiseDriver
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.engine import algorithm_names
-from repro_torch.models.attention import _not_ported
 from repro_torch.utils.logging import RUN_ID, get_logger
 from repro_torch.utils.tree import tree_map
 
@@ -45,24 +44,31 @@ log = get_logger("train")
 def synthetic_batches(cfg, n_clients, batch_per_client, seq_len, seed=0,
                       non_iid=False, device=None):
     """Infinite (C, B, S) token/label batches (int64 tensors on
-    ``device``, None meaning CUDA) from per-client shards; the reference's
-    numpy draws, so both packages see the same tokens."""
-    if cfg.frontend:
-        raise _not_ported("frontend archs")
+    ``device``, None meaning CUDA) from per-client shards, with a frontend
+    arch's (C, B, n_fe, frontend_dim) embeddings (float32 standard normal
+    draws from ``RandomState(seed + 1)``, rounded to bfloat16); the
+    reference's numpy draws, so both packages see the same batches."""
     dev = resolve_device(device)
     shards = make_token_stream(200_000, cfg.vocab_size, n_clients, seed=seed,
                                non_iid=non_iid)
     rng = np.random.RandomState(seed)
+    fe_rng = np.random.RandomState(seed + 1)
     n = shards.shape[1] - seq_len - 1
     rows = np.arange(n_clients)[:, None, None]
     offs = np.arange(seq_len)
     while True:
         starts = rng.randint(0, n, size=(n_clients, batch_per_client))
         idx = starts[..., None] + offs
-        yield {"tokens": torch.from_numpy(shards[rows, idx]).to(dev,
-                                                                torch.long),
-               "labels": torch.from_numpy(shards[rows, idx + 1]).to(
-                   dev, torch.long)}
+        batch = {"tokens": torch.from_numpy(shards[rows, idx]).to(
+                     dev, torch.long),
+                 "labels": torch.from_numpy(shards[rows, idx + 1]).to(
+                     dev, torch.long)}
+        if cfg.frontend:
+            fe = fe_rng.randn(n_clients, batch_per_client,
+                              cfg.n_frontend_tokens,
+                              cfg.frontend_dim).astype(np.float32)
+            batch["frontend"] = torch.from_numpy(fe).to(dev, torch.bfloat16)
+        yield batch
 
 
 def main(argv=None):

@@ -49,11 +49,6 @@ from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
 NEG_INF = -2.0e38
 
 
-def _not_ported(what: str):
-    return NotImplementedError(
-        f"{what} is not ported yet (ROADMAP queue 1: {what})")
-
-
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------

@@ -4,7 +4,11 @@ The port of ``src/repro/models/transformer.py:39-304`` for attention
 layers (kinds ``G`` and ``L``: GQA or MLA, ``models/attention.py``) with
 dense SwiGLU MLPs or MoE layers (``models/moe.py``; the first
 ``moe.n_dense_layers`` layers, the reference's ``head``, keep a dense
-MLP), and Mamba2 layers (kind ``M``, ``models/ssm.py``). The JAX package
+MLP), Mamba2 layers (kind ``M``, ``models/ssm.py``) and RG-LRU layers
+(kind ``R``, ``models/rglru.py``, with a dense MLP). A frontend arch
+(``cfg.frontend``: internvl2's patches, musicgen's frames) projects its
+precomputed embeddings with ``proj_frontend`` and prepends them to the
+text tokens (``_embed_tokens``). The JAX package
 stacks each group of ``block_pattern`` layers for ``lax.scan``; here the
 layers are a Python list in layer order (``params["layers"]``, one cache
 per layer in ``cache["layers"]``). ``utils/convert.py`` maps a JAX tree
@@ -13,9 +17,9 @@ onto this layout.
 Public API:
   init_params(cfg, seed=, device=)          -> params
   init_params_shape(cfg)                    -> params as meta tensors
-  forward(params, cfg, tokens)              -> (logits, aux)   # scoring
+  forward(params, cfg, tokens, frontend=None)        -> (logits, aux)
   init_cache(cfg, batch, max_len, dtype=, device=) -> cache
-  prefill(params, cfg, tokens, cache)       -> (logits, cache)
+  prefill(params, cfg, tokens, cache, frontend=None) -> (logits, cache)
   decode_step(params, cfg, tokens, cache)   -> (logits, cache)
 
 Training (``core/local_sgd.py``) keeps the parameters in the JAX
@@ -33,7 +37,9 @@ load-balance losses (zero without MoE).
 ``cache["pos"]`` is a (B,) integer tensor: each batch row's token count,
 so a batch of independent sequences (the serving engine's slots) decodes
 in one call. An attention layer's cache holds K/V, a Mamba2 layer's its
-conv carry and SSM state. Caches are updated in place; ``prefill`` fills
+conv carry and SSM state, an RG-LRU layer's conv carry and recurrent
+state. The frontend tokens hold positions 0..n_fe − 1 and count in
+``cache["pos"]``. Caches are updated in place; ``prefill`` fills
 an empty cache (or a batch-row view of one, see ``cache_rows``).
 """
 from __future__ import annotations
@@ -47,6 +53,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import resolve_device
 from repro_torch.models import attention as A
 from repro_torch.models import moe as MOE
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm, softcap)
@@ -117,18 +124,16 @@ def to_grouped(params, cfg: ArchConfig):
 
 
 def check_supported(cfg: ArchConfig):
-    """Raise for what this port cannot build yet, naming its ROADMAP item."""
+    """Raise for what this port does not build: unknown layer kinds, and
+    grouped Mamba2 B/C, which the JAX model refuses too."""
     kinds = set(cfg.layer_kinds())
-    bad = sorted(kinds - {"G", "L", "M"})
+    bad = sorted(kinds - {"G", "L", "M", "R"})
     if bad:
-        what = {"R": "RG-LRU layers"}
-        raise NotImplementedError(
-            f"{cfg.name}: layer kinds {bad} are not ported yet (ROADMAP "
-            f"queue 1: {', '.join(what.get(b, b) for b in bad)})")
+        raise ValueError(f"{cfg.name}: unknown layer kinds {bad}")
     if "M" in kinds:
         SSM.check_supported(cfg)
-    if cfg.frontend is not None:
-        raise A._not_ported("frontend archs")
+    if "R" in kinds:
+        RG.check_supported(cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -146,6 +151,9 @@ def _init_layer(gen, cfg: ArchConfig, kind: str, in_head: bool, dtype):
     zeros = lambda: torch.zeros((d,), dtype=dtype, device=gen.device)
     if kind == "M":
         return {"ln1": zeros(), "mamba": SSM.init_mamba2(gen, cfg, dtype)}
+    if kind == "R":
+        return {"ln1": zeros(), "lru": RG.init_rglru(gen, cfg, dtype),
+                "ln2": zeros(), "mlp": init_mlp(gen, d, cfg.d_ff, dtype)}
     p = {"ln1": zeros(), "attn": A.init_attention(gen, cfg, dtype),
          "ln2": zeros()}
     if cfg.moe is not None and not in_head:
@@ -192,6 +200,9 @@ def _build_params(gen, cfg: ArchConfig):
                                         device=dev)}
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, vp, dtype)
+    if cfg.frontend:
+        params["proj_frontend"] = dense_init(gen, cfg.frontend_dim,
+                                             cfg.d_model, dtype)
     params["layers"] = [_init_layer(gen, cfg, kind, _in_head(cfg, i), dtype)
                         for i, kind in enumerate(cfg.layer_kinds())]
     return params
@@ -210,6 +221,11 @@ def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
         out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache,
                                   fresh=fresh)
         return x + out, None
+    if kind == "R":
+        out, _ = RG.apply_rglru(p["lru"], cfg, h, cache=cache, fresh=fresh)
+        x = x + out
+        h2 = rms_norm(x, p["ln2"], cfg.norm_eps)
+        return x + apply_mlp(p["mlp"], h2), None
     att_out, cache = A.apply_attention(p["attn"], cfg, h, pos_q,
                                        is_local=(kind == "L"), cache=cache,
                                        cache_pos=cache_pos)
@@ -265,21 +281,30 @@ def _logits(params, cfg: ArchConfig, x):
     return logits
 
 
-def _embed_tokens(params, cfg: ArchConfig, tokens):
+def _embed_tokens(params, cfg: ArchConfig, tokens, frontend=None):
+    """The scaled token embeddings, after the projected frontend
+    embeddings (B, n_fe, frontend_dim) where a frontend arch is given
+    them: cast to the activation type, projected, not scaled."""
     emb = params["embed"]
     # the JAX package multiplies by a weakly typed scalar, i.e. by
     # sqrt(d_model) rounded to the embedding's type
-    return emb[tokens] * torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
-                                      device=emb.device)
+    x = emb[tokens] * torch.tensor(math.sqrt(cfg.d_model), dtype=emb.dtype,
+                                   device=emb.device)
+    if cfg.frontend is not None and frontend is not None:
+        fe = frontend.to(x.dtype) @ params["proj_frontend"]
+        x = torch.cat([fe, x], dim=1)
+    return x
 
 
 # ---------------------------------------------------------------------------
 # Public entry points
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ArchConfig, tokens):
-    """Full-sequence scoring. tokens: (B, S) integer. Returns (logits, aux)."""
-    x = _embed_tokens(params, cfg, tokens)
+def forward(params, cfg: ArchConfig, tokens, frontend=None):
+    """Full-sequence scoring. tokens: (B, S) integer; ``frontend``: a
+    frontend arch's (B, n_fe, frontend_dim) embeddings, or None. Returns
+    (logits, aux), the logits over n_fe + S positions."""
+    x = _embed_tokens(params, cfg, tokens, frontend)
     pos_q = torch.arange(x.shape[1], device=x.device)
     x, aux = _run_stack(params, cfg, x, pos_q)
     return _logits(params, cfg, x), aux
@@ -289,8 +314,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
                device=None):
     """Empty caches (``dtype``: a torch dtype, default ``cfg.dtype``) for
     ``batch`` independent rows on ``device`` (None means CUDA): K/V for an
-    attention layer, the conv carry (in ``dtype``) and the float32 SSM
-    state for a Mamba2 layer."""
+    attention layer, the conv carry (in ``dtype``) and the float32 state
+    for a Mamba2 or an RG-LRU layer."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
@@ -298,6 +323,8 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     def layer(kind):
         if kind == "M":
             return SSM.init_mamba2_cache(cfg, batch, dtype, device=dev)
+        if kind == "R":
+            return RG.init_rglru_cache(cfg, batch, dtype, device=dev)
         return A.init_attention_cache(cfg, kind == "L", batch, max_len,
                                       dtype, device=dev)
 
@@ -313,26 +340,27 @@ def cache_rows(cache, start: int, stop: int):
                        for c in cache["layers"]]}
 
 
-def prefill(params, cfg: ArchConfig, tokens, cache):
+def prefill(params, cfg: ArchConfig, tokens, cache, frontend=None):
     """Run the prompt (B, S) through an empty cache; returns (logits, cache).
 
-    The queries sit at positions 0..S-1 (prefill from zero, as in the JAX
-    package), so every attention layer is one flash-attention launch and
-    every Mamba2 layer one SSD-kernel launch. A reused cache (a retired
-    slot of the serving engine) starts over: its positions are reset, its
-    old K/V is masked as unwritten, and its conv carries and SSM states
-    are zeroed.
+    A frontend arch's embeddings (``frontend``, (B, n_fe, frontend_dim))
+    come first: the queries sit at positions 0..n_fe + S − 1 (prefill from
+    zero, as in the JAX package), so every attention layer is one
+    flash-attention launch and every Mamba2 layer one SSD-kernel launch. A
+    reused cache (a retired slot of the serving engine) starts over: its
+    positions are reset, its old K/V is masked as unwritten, and its conv
+    carries and recurrent states (Mamba2's and RG-LRU's) are zeroed.
     """
-    x = _embed_tokens(params, cfg, tokens)
+    x = _embed_tokens(params, cfg, tokens, frontend)
     S = x.shape[1]
     pos_q = torch.arange(S, device=x.device)
     cache["pos"].zero_()
     for kind, c in zip(cfg.layer_kinds(), cache["layers"]):
-        if kind == "M":
+        if kind in ("M", "R"):
             c["conv"].zero_()
             c["state"].zero_()
     # a one-token prompt takes the decode branch at position 0 (from the
-    # zeroed state in a Mamba2 layer); a longer one scans from no state
+    # zeroed state in a recurrent layer); a longer one scans from no state
     x, _ = _run_stack(params, cfg, x, pos_q, cache["layers"], cache["pos"],
                       fresh=True)
     cache["pos"].fill_(S)

@@ -14,7 +14,9 @@ decodes every slot: each writes its K/V at its own ring index and gets its
 own mask, or updates its own Mamba2 state. A prefill writes straight into
 its slot's rows of the stacked cache through a view (``TF.cache_rows``),
 in place, where JAX donated the buffers: no second copy of a
-gigabyte-sized slot; it zeroes a reused slot's Mamba2 state first. Slot rows are
+gigabyte-sized slot; it zeroes a reused slot's recurrent states first. A
+request's frontend embeddings go to the card as bfloat16, as the JAX
+package hands them over, and its prefill is priced with them. Slot rows are
 independent, so a slot's tokens are those of the per-request
 ``greedy_decode``; on the card the batched and single-row products may
 round differently in bfloat16.
@@ -220,9 +222,10 @@ class ServeEngine:
     # -- pricing ------------------------------------------------------------
 
     def prefill_s(self, req: Request) -> float:
-        """Modeled cost of one request's prefill."""
+        """Modeled cost of one request's prefill (frontend tokens count)."""
+        fe = self.cfg.n_frontend_tokens if req.frontend is not None else 0
         return self.device.step_time_s(
-            self.cfg, ShapeConfig("serve_prefill", req.prompt_len, 1,
+            self.cfg, ShapeConfig("serve_prefill", req.prompt_len + fe, 1,
                                   "prefill"))
 
     # -- the loop -----------------------------------------------------------
@@ -243,9 +246,6 @@ class ServeEngine:
         synchronised with the card, against its modeled price for the
         skew table.
         """
-        if any(r.frontend is not None for r in requests):
-            raise NotImplementedError("frontend embeddings are not ported "
-                                      "yet (ROADMAP queue 1: frontend archs)")
         registry = registry or obs_metrics.registry()
         series = series if series is not None else obs_series.registry()
         s_queue = series.series(
@@ -318,6 +318,10 @@ class ServeEngine:
                                          dtype=torch.long, device=dev)
                 p_args = (self.params, TF.cache_rows(stacked, slot, slot + 1),
                           prompt)
+                if req.frontend is not None:
+                    # bfloat16, as the JAX engine hands it over
+                    p_args += (torch.as_tensor(
+                        req.frontend[None]).to(dev, torch.bfloat16),)
                 if profile is not None:
                     logits, _ = profile.step("serve.prefill",
                                              self.prefill_s(req),

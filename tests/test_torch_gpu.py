@@ -20,6 +20,8 @@ to bfloat16). The MoE layer and the int8 KV cache, card against CPU: the
 same expert assignment and the output within 1e-5 (float32), the cache's
 codes and scales bit-equal; the zero-padded MLA flash call against the
 plain attention on the unpadded head dims, with flash's tolerances.
+recurrentgemma-2b and internvl2-2b SMOKE (float32), card against CPU:
+logits within 1e-4 through a prefill and 8 decode steps.
 """
 import math
 
@@ -282,6 +284,7 @@ FLASH_CASES = [
     (1, 257, 257, 4, 2, 64, True, None, 50.0),      # D = 64 with softcap
     (1, 257, 257, 4, 2, 256, True, None, 50.0),     # D = 256 with softcap
     (1, 300, 1000, 4, 2, 128, False, None, None),   # non-causal, Sq < Sk
+    (1, 512, 512, 10, 1, 256, True, 128, None),     # MQA group 10, D = 256
 ]
 
 
@@ -1150,3 +1153,78 @@ def test_kv_quant_codes_equal_across_routes(cuda, dtype):
     assert torch.equal(qg.cpu(), qc) and torch.equal(sg.cpu(), sc)
     assert torch.equal(TA._dequant(qg, sg, dtype).cpu(),
                        TA._dequant(qc, sc, dtype))
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "internvl2-2b"])
+def test_rglru_and_frontend_smoke_logits_equal_cpu(cuda, arch):
+    """SMOKE in float32 from one set of params: recurrentgemma-2b with an
+    80-token prompt (past its 64-token window), internvl2-2b with 16 patch
+    embeddings and a 24-token prompt; then 8 decode steps fed the CPU run's
+    tokens. The card's logits within 1e-4 of the CPU's (float32 on both
+    sides, sums in another order); one flash launch an attention layer a
+    prefill."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import transformer as TF
+    from repro_torch.utils.tree import tree_map
+
+    cfg = get_arch(arch, smoke=True).replace(dtype="float32")
+    p_cpu = TF.init_params(cfg, seed=0, device="cpu")
+    rng = np.random.RandomState(0)
+    n = 80 if cfg.frontend is None else 24
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (1, n))).long()
+    fe = (None if cfg.frontend is None else torch.from_numpy(rng.randn(
+        1, cfg.n_frontend_tokens, cfg.frontend_dim).astype(np.float32)))
+    runs, toks = {}, []
+    for dev in ("cpu", cuda):
+        params = p_cpu if dev == "cpu" else tree_map(lambda t: t.to(dev),
+                                                     p_cpu)
+        cache = TF.init_cache(cfg, 1, n + 32, device=dev)
+        before = FA.flash_attention.launches
+        logits, cache = TF.prefill(
+            params, cfg, prompt.to(dev), cache,
+            None if fe is None else fe.to(dev))
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            attn = sum(k in "GL" for k in cfg.layer_kinds())
+            assert FA.flash_attention.launches == before + attn
+        steps = [logits[:, -1].cpu()]
+        for i in range(8):
+            if dev == "cpu":
+                toks.append(torch.argmax(steps[-1], dim=-1)[:, None])
+            logits, cache = TF.decode_step(params, cfg, toks[i].to(dev),
+                                           cache)
+            steps.append(logits[:, -1].cpu())
+        runs[str(dev)] = torch.stack(steps)
+    err = float((runs["cpu"] - runs[str(cuda)]).abs().max())
+    assert err <= 1e-4, err
+
+
+def test_update_of_a_recurrentgemma_client_tree_is_two_launches(cuda):
+    """recurrentgemma-2b SMOKE in bf16, 2 clients: one client's update of
+    its row views (bf16 leaves and the float32 a_param rows, two type
+    groups, so two launches) bit-equal to the plain version; the other
+    client's rows untouched."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.utils.tree import tree_leaves
+
+    cfg = get_arch("recurrentgemma-2b", smoke=True)
+    state = LS.init_state(0, cfg, 2, device=cuda)
+    P = tree_leaves(state["params"])
+    g = torch.Generator(device=cuda).manual_seed(3)
+    M = [torch.randn(p.shape, generator=g, device=cuda) for p in P]
+    G = [torch.randn(p.shape[1:], generator=g, device=cuda).to(p.dtype)
+         for p in P]
+    assert {p.dtype for p in P} == {torch.bfloat16, torch.float32}
+    P0, M0 = [p.clone() for p in P], [m.clone() for m in M]
+    want_p, want_m = tree_sgd_update_ref([p[1] for p in P],
+                                         [m[1] for m in M], G, eta=0.05,
+                                         beta=0.9, wd=1e-4)
+    before = fused_sgd_update.launches
+    tree_sgd_update_([p[1] for p in P], [m[1] for m in M], G, eta=0.05,
+                     beta=0.9, wd=1e-4)
+    torch.cuda.synchronize()
+    assert fused_sgd_update.launches == before + 2
+    for p, m, p0, m0, wp, wm in zip(P, M, P0, M0, want_p, want_m):
+        assert torch.equal(p[0], p0[0]) and torch.equal(m[0], m0[0])
+        assert torch.equal(p[1], wp) and torch.equal(m[1], wm)

@@ -62,7 +62,9 @@ def test_importing_every_port_module_loads_no_jax():
     assert "repro_torch.engine.topology" in mods
     for m in ("models.moe", "models.attention", "configs.gemma3_12b",
               "configs.minicpm3_4b", "configs.phi35_moe",
-              "configs.deepseek_v2_236b",
+              "configs.deepseek_v2_236b", "models.rglru",
+              "configs.recurrentgemma_2b", "configs.internvl2_2b",
+              "configs.musicgen_medium",
               "optim.sgd", "checkpoint.ckpt", "core.local_sgd",
               "core.stl_sgd", "core.baselines", "launch.train",
               "launch.serve", "obs.export", "obs.profile", "obs.diff",

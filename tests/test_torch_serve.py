@@ -331,7 +331,9 @@ def test_device_model_prices_one_chip_only():
 @pytest.mark.parametrize("args", [
     ["--arch", "deepseek-v2-236b"],
     ["--arch", "gemma3-12b"],
-    ["--arch", "minicpm3-4b"], ["--arch", "phi3.5-moe-42b-a6.6b"]])
+    ["--arch", "minicpm3-4b"], ["--arch", "phi3.5-moe-42b-a6.6b"],
+    ["--arch", "recurrentgemma-2b"], ["--arch", "internvl2-2b"],
+    ["--arch", "musicgen-medium"]])
 def test_serve_cli_on_the_moe_and_mla_archs_on_cpu(args):
     report = serve_cli.main(args + ["--smoke", "--device", "cpu",
                                     "--requests", "4", "--slots", "2"])

@@ -312,3 +312,31 @@ def test_train_main_matches_jax(monkeypatch):
     for a, b in zip(got.results, want.results):
         assert a.mean_loss == pytest.approx(b.mean_loss, abs=2e-2)
     assert got.comm_bytes_total == want.comm_bytes_total
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "internvl2-2b",
+                                  "musicgen-medium"])
+def test_train_main_on_the_rglru_and_frontend_archs_matches_jax(
+        monkeypatch, arch):
+    """``launch.train.main`` on the RG-LRU arch and the frontend archs
+    (SMOKE, bf16, 2 clients, 4 steps; the frontend archs' batches carry
+    their bfloat16 embeddings), both packages from the JAX package's
+    initial state: the same stages, rounds and ledger, mean losses within
+    the bf16 bound of ``test_train_main_matches_jax``."""
+    argv = ["--arch", arch, "--smoke", "--steps", "4", "--clients", "2",
+            "--seq", "32", "--T1", "4", "--k1", "2", "--stages", "1"]
+    want = JT.main(argv)
+    jcfg = jax_get_arch(arch, smoke=True)
+
+    def from_jax(seed, cfg, n, optimizer, *, device=None):
+        return train_state_from_jax(to_numpy_tree(
+            JLS.init_state(jax.random.key(seed), jcfg, n, optimizer)), device)
+
+    monkeypatch.setattr(TLS, "init_state", from_jax)
+    got = TT.main(argv + ["--device", "cpu"])
+    assert [(r.stage, r.k, r.iters, r.rounds) for r in got.results] == \
+        [(r.stage, r.k, r.iters, r.rounds) for r in want.results] == \
+        [(1, 2, 4, 2)]
+    for a, b in zip(got.results, want.results):
+        assert a.mean_loss == pytest.approx(b.mean_loss, abs=2e-2)
+    assert got.comm_bytes_total == want.comm_bytes_total

@@ -164,28 +164,35 @@ def test_default_device_needs_cuda():
         TTF.init_cache(cfg, 1, 8)
 
 
-@pytest.mark.parametrize("name", ["internvl2-2b", "recurrentgemma-2b"])
-def test_unported_archs_raise_naming_their_roadmap_item(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_arch(name)
+NEW_ARCHS = ["recurrentgemma-2b", "internvl2-2b", "musicgen-medium"]
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("name", NEW_ARCHS)
+def test_unported_archs_raise_naming_their_roadmap_item(name, smoke):
+    """The archs that once raised here, naming the ROADMAP item they waited
+    for (RG-LRU, the frontend archs), now resolve, FULL and SMOKE, to the
+    JAX package's config, field for field; an unknown name still raises."""
+    assert dataclasses.asdict(get_arch(name, smoke)) == \
+        dataclasses.asdict(jax_get_arch(name, smoke))
+    TTF.check_supported(get_arch(name, smoke))
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 
 
 @pytest.mark.parametrize("smoke", [False, True])
 def test_new_arch_configs_equal_jax(smoke):
-    """gemma3-12b, minicpm3-4b, phi3.5-moe and deepseek-v2: every field,
-    the MoE and attention sub-configs included; only the RG-LRU and
-    frontend archs still wait."""
+    """Every arch of the port: every field, the MoE, attention, RG-LRU and
+    frontend sub-configs included; the port knows every arch the JAX
+    package does."""
+    from repro.configs import ARCHS as J_ARCHS
     from repro_torch.configs import ARCHS as T_ARCHS
-    from repro_torch.configs import WAITING
 
-    for name in ARCHS + ["mamba2-2.7b"]:
+    for name in ARCHS + ["mamba2-2.7b"] + NEW_ARCHS:
         assert dataclasses.asdict(get_arch(name, smoke)) == \
             dataclasses.asdict(jax_get_arch(name, smoke))
-    assert sorted(WAITING) == ["internvl2-2b", "musicgen-medium",
-                               "recurrentgemma-2b"]
-    assert sorted(T_ARCHS) == sorted(ARCHS + ["mamba2-2.7b"])
+    assert sorted(T_ARCHS) == sorted(ARCHS + ["mamba2-2.7b"] + NEW_ARCHS)
+    assert sorted(T_ARCHS) == sorted(J_ARCHS)
 
 
 def test_kv_quant_prefill_and_decode_match_jax():
@@ -225,14 +232,29 @@ def test_kv_quant_prefill_and_decode_match_jax():
 
 
 def test_unported_layer_kinds_raise():
-    """RG-LRU layers, and Mamba2 with grouped B/C, which the JAX model
-    refuses too (``src/repro/models/ssm.py:111-114``)."""
+    """Mamba2 with grouped B/C raises, as the JAX model does
+    (``src/repro/models/ssm.py:111-114``). RG-LRU layers, which raised
+    here before they were ported, run: an R layer beside a global one (gemma2
+    SMOKE with recurrentgemma's RG-LRU config) gives the JAX model's
+    logits."""
     cfg = get_arch("gemma2-27b", smoke=True)
     mamba = get_arch("mamba2-2.7b", smoke=True)
     grouped = mamba.replace(ssm=dataclasses.replace(mamba.ssm, n_groups=2))
-    for bad in (grouped, cfg.replace(block_pattern=("G", "R"))):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TTF.init_params(bad, seed=0, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TTF.init_params(grouped, seed=0, device="cpu")
+    rglru = get_arch("recurrentgemma-2b", smoke=True).rglru
+    hybrid = cfg.replace(block_pattern=("G", "R"), rglru=rglru,
+                         dtype="float32")
+    jhybrid = jax_get_arch("gemma2-27b", smoke=True).replace(
+        block_pattern=("G", "R"), rglru=rglru, dtype="float32")
+    jp = JTF.init_params(jax.random.key(0), jhybrid)
+    tp = transformer_params_from_jax(jax.tree.map(np.asarray, jp), hybrid,
+                                     "cpu")
+    toks = _tokens(hybrid, 1, 40)
+    want, _ = JTF.forward(jp, jhybrid, jnp.asarray(toks))
+    got, _ = TTF.forward(tp, hybrid, torch.from_numpy(toks).long())
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                               rtol=1e-4)
     jgrouped = jax_get_arch("mamba2-2.7b", smoke=True)
     jgrouped = jgrouped.replace(ssm=dataclasses.replace(jgrouped.ssm,
                                                         n_groups=2))
@@ -241,7 +263,7 @@ def test_unported_layer_kinds_raise():
                     jnp.zeros((1, 64), jnp.int32))
 
 
-@pytest.mark.parametrize("name", ARCHS + ["mamba2-2.7b"])
+@pytest.mark.parametrize("name", ARCHS + ["mamba2-2.7b"] + NEW_ARCHS)
 @pytest.mark.parametrize("smoke", [False, True])
 def test_flops_model_equals_jax(name, smoke):
     jcfg, tcfg = jax_get_arch(name, smoke=smoke), get_arch(name, smoke=smoke)
