@@ -179,8 +179,7 @@ failure propagates, so the script exits non-zero and prints no result.
      draws (width 8, 16x16 and 32x32, 4 rounds); ResNet18 (width 64, 11.17 M parameters, 38
      leaves) on 8,192 32x32 images over 8 Non-IID clients, stl_nc1
      (eta1 0.005, T1 512, k1 8, 1/gamma 0.01), momentum 0.9, B=16, int8,
-     cut to 32 rounds of stage 1 (256 local steps; 64 rounds, the whole
-     stage, before phase 19 joined the script), 1 - train accuracy as
+     cut to stage 1 (64 rounds, 512 local steps), 1 - train accuracy as
      the objective every 8 rounds; VGG16 (width 64, 30 leaves) for 16
      rounds (128 steps). The objective finite (and, for ResNet18, ending
      below its start: VGG16's does not fall within 16 rounds on the
@@ -1946,7 +1945,8 @@ def recording_int8(calls: list):
     from repro_torch.kernels.quantize import ops as Q
 
     class Recording(QuantizedMean):
-        def _compress(self, y, rng):
+        def _compress(self, y, rng, shards=None):
+            assert shards is None, "recording_int8 runs on one device"
             scales = Q.compute_scale(y, dim=1)
             rbits = rng.bits(y.shape)
             q = Q.encode_leaf(y, rbits, scales, bits=self.bits)
@@ -2407,11 +2407,15 @@ def path_trees(torch) -> dict:
 # CPU-reduced 16): 32x32x3 images, 10 classes, n = 8,192, 8 Non-IID clients
 # (label-sorted, iid_percent 0), B = 16, momentum 0.9, stl_nc1 with
 # eta1 = 0.005, T1 = 512, k1 = 8, 1/gamma = 0.01, int8 rounds; 8 stages,
-# cut to 32 rounds of stage 1 (256 local steps; the whole stage, 64 rounds,
-# before phase 19 joined the script); VGG16 cut to 16 rounds.
+# cut to stage 1 (64 rounds, 512 local steps); VGG16 cut to 16 rounds.
+# ResNet18 runs the whole stage because its 1 - train accuracy stays at
+# chance (about 0.90) for the first 32 rounds on the Non-IID split and
+# falls only after: at 32 rounds the falling-objective check was a coin
+# toss over cuDNN's nondeterministic backward (0.8958 -> 0.8184 in one run,
+# -> 0.9044 in the next), at 64 rounds it ended at 0.024-0.026 in each run.
 TABLE2 = {"n": 8192, "hw": 32, "classes": 10, "clients": 8, "width": 64,
           "batch": 16, "T1": 512, "k1": 8.0, "stages": 8, "run_stages": 1,
-          "resnet_rounds": 32, "vgg_rounds": 16, "eval_every": 8}
+          "resnet_rounds": 64, "vgg_rounds": 16, "eval_every": 8}
 # the blocks the CNN's int8 round hands quantize and dequant_mean, and its
 # update's leaves: ResNet18's largest leaf (the last 3x3x512x512 conv), the
 # head's weight and a 64-channel scale, each stacked over the 8 clients
@@ -2756,7 +2760,7 @@ def run_cnn(torch, dev="cuda:0"):
         # VGG16's 1 - accuracy does not fall within 16 rounds on the
         # Non-IID split (0.8979 -> 0.9054 on an H100; its cross-entropy
         # rose too in a width-32 CPU run): that it falls is held on
-        # ResNet18's 32 rounds; VGG16 is held to the CPU run
+        # ResNet18's 64 rounds; VGG16 is held to the CPU run
         # (cnn_reference_check)
         if not all(math.isfinite(v) for v in vals) or \
                 (net == "resnet18" and not vals[-1] < vals[0]):
@@ -4943,6 +4947,221 @@ def run_rglru_frontend_phase(torch, floor) -> dict:
     return out
 
 
+# phase 21: the mesh. 21a: qwen3-14b at full width, its depth cut to 2 of
+# 40 layers as in 16c (2 clients, 2 sequences of 1,024 tokens a client a
+# step), on make_host_mesh(1, 1) over NCCL: 4 local steps and a dense
+# round, bit-equal to the same run through build_train_steps(cfg, dev)
+# from the same state (kept in host memory between the runs: two states on
+# the card would be 53 GB); an int8 round at SMOKE width (float32, 16b's
+# batches) under the same bit-equality, its keys the same TorchKey. 21b:
+# launch.dryrun for qwen3-14b x train_4k on the fake (16, 16) mesh (local
+# and sync step, microbatch 1 for the script's time); nothing allocated;
+# traced on fake CUDA tensors and on fake CPU ones, the records equal.
+MESH_RUN = {"layers": 2, "clients": 2, "batch": 2, "seq": 1024, "steps": 4,
+            "eta": 0.03, "smoke_steps": 4, "dryrun_microbatch": 1}
+
+
+def mesh_pair(torch, cfg, dev, host_state, batches, eta, mesh, **kw):
+    """The same local steps and one round through the device route, then
+    through the 1x1 mesh route, each from ``host_state`` copied to the
+    card (``host_state`` is emptied once the second run has its copy: at
+    full width the host holds at most the start and one final state).
+    Returns per route its step times, round time and loss, the mesh run's
+    launches (counters reset just before it) and the leaf paths where the
+    two final states differ bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.utils.tree import tree_flatten_with_path, tree_map
+
+    def leaves(state):
+        return tree_flatten_with_path({k: v for k, v in state.items()
+                                       if k != "step"})[0]
+
+    out, first = {}, None
+    for route in ("device", "mesh"):
+        state = tree_map(lambda t: t.to(dev, copy=True)
+                         if torch.is_tensor(t) else t, host_state)
+        where = dev
+        if route == "mesh":
+            host_state.clear()
+            state = LS.place_state(state, mesh)
+            where = mesh
+        step, sync, _ = LS.build_train_steps(cfg, where, **kw)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        times = []
+        for b in batches:
+            t0 = time.monotonic()
+            state, m = step(state, b, eta)
+            torch.cuda.synchronize()
+            times.append((time.monotonic() - t0) * 1e3)
+        t0 = time.monotonic()
+        state = sync(state)
+        torch.cuda.synchronize()
+        out[route] = {"step_ms": times,
+                      "sync_ms": (time.monotonic() - t0) * 1e3,
+                      "loss": float(m["loss"]),
+                      "launches": kernels.launch_counts()}
+        final = leaves(LS.gather_state(state))
+        if first is None:
+            first = [(p, t.to("cpu", copy=True)) for p, t in final]
+        else:
+            out["diff"] = (["structure"] if [p for p, _ in first]
+                           != [p for p, _ in final] else
+                           [p for (p, a), (_, b) in zip(first, final)
+                            if not torch.equal(a.to(b.device), b)])
+        del state, final
+        torch.cuda.empty_cache()
+    return out
+
+
+def run_mesh_phase(torch, dev="cuda:0") -> dict:
+    """Phase 21: 21a the 1x1 mesh route against the device route at full
+    width (dense) and at SMOKE width (int8); 21b the dry run."""
+    import itertools
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.utils.rng import TorchKey
+    from repro_torch.utils.tree import tree_leaves, tree_map
+
+    q = MESH_RUN
+    dev = torch.device(dev)
+    full = get_arch("qwen3-14b")
+    cfg = full.replace(n_layers=q["layers"])
+    log(f"[cut] phase 21a: qwen3-14b at full width, depth cut to "
+        f"{q['layers']} of {full.n_layers} layers; {q['steps']} local steps "
+        f"and one dense round")
+    out = {}
+    mesh = make_host_mesh(1, 1, device=dev)
+    try:
+        state = LS.init_state(0, cfg, q["clients"], device=dev)
+        host = tree_map(lambda t: t.to("cpu") if torch.is_tensor(t) else t,
+                        state)
+        del state
+        torch.cuda.empty_cache()
+        batches = list(itertools.islice(synthetic_batches(
+            cfg, q["clients"], q["batch"], q["seq"], seed=0, device=dev),
+            q["steps"]))
+        n_leaves = len(tree_leaves(host["params"]))
+        torch.cuda.reset_peak_memory_stats()
+        pair = mesh_pair(torch, cfg, dev, host, batches, q["eta"], mesh)
+        diff = pair.pop("diff")
+        launches = pair["mesh"]["launches"]
+        want = {"flash_attention": 2 * q["layers"] * q["clients"]
+                * q["steps"],
+                "fused_sgd_update": q["clients"] * q["steps"],
+                "quantize_kernel": 0, "dequant_mean_kernel": 0}
+        med = {r: sorted(pair[r]["step_ms"][1:])[len(pair[r]["step_ms"][1:])
+                                                // 2] for r in pair}
+        log(f"[mesh] 21a qwen3-14b, {cfg.n_layers} layers, 1x1 mesh over "
+            f"{dist.get_backend()}: {'bit-equal' if not diff else 'DIFFER'}"
+            f" to the device route after {q['steps']} local steps and a "
+            f"dense round; ms a step (device / mesh): "
+            f"{[round(v, 2) for v in pair['device']['step_ms']]} / "
+            f"{[round(v, 2) for v in pair['mesh']['step_ms']]}, median of "
+            f"steps 2-{q['steps']} {med['device']:.2f} / {med['mesh']:.2f};"
+            f" round {pair['device']['sync_ms']:.2f} / "
+            f"{pair['mesh']['sync_ms']:.2f} ms; loss "
+            f"{pair['device']['loss']:.6f} / {pair['mesh']['loss']:.6f}; "
+            f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB; mesh "
+            f"launches {launches}")
+        if diff:
+            raise AssertionError(f"phase 21a: the mesh route differs at "
+                                 f"{diff[:5]}")
+        expect_launches("phase 21a mesh", launches, want)
+        out["full"] = {"bit_equal": True, "layers": cfg.n_layers,
+                       "step_ms": {r: pair[r]["step_ms"] for r in pair},
+                       "median_step_ms": med,
+                       "sync_ms": {r: pair[r]["sync_ms"] for r in pair},
+                       "launches": launches, "n_leaves": n_leaves}
+        del pair, host
+        torch.cuda.empty_cache()
+
+        # the int8 round at SMOKE width (16b's configuration)
+        scfg = get_arch("qwen3-14b", smoke=True).replace(dtype="float32")
+        sstate = LS.init_state(0, scfg, LM_CHECK["clients"], device="cpu")
+        sb = list(itertools.islice(synthetic_batches(
+            scfg, LM_CHECK["clients"], LM_CHECK["batch"], LM_CHECK["seq"],
+            seed=0, device=dev), q["smoke_steps"]))
+        n_leaves = len(tree_leaves(sstate["params"]))
+        spair = mesh_pair(torch, scfg, dev, sstate, sb, LM_CHECK["eta1"],
+                          mesh, reducer="int8", rng=TorchKey(0, dev))
+        sdiff = spair.pop("diff")
+        swant = {"flash_attention": 2 * scfg.n_layers * LM_CHECK["clients"]
+                 * q["smoke_steps"],
+                 "fused_sgd_update": LM_CHECK["clients"] * q["smoke_steps"],
+                 "quantize_kernel": n_leaves,
+                 "dequant_mean_kernel": n_leaves}
+        log(f"[mesh] 21a qwen3 SMOKE int8 round, 1x1 mesh: "
+            f"{'bit-equal' if not sdiff else 'DIFFER'} to the device route "
+            f"(params, moments, residuals); mesh launches "
+            f"{spair['mesh']['launches']}")
+        if sdiff:
+            raise AssertionError(f"phase 21a int8: the mesh route differs at "
+                                 f"{sdiff[:5]}")
+        expect_launches("phase 21a int8 mesh", spair["mesh"]["launches"],
+                        swant)
+        out["smoke_int8"] = {"bit_equal": True,
+                             "launches": spair["mesh"]["launches"]}
+        out["launches"] = {k: launches[k] + spair["mesh"]["launches"][k]
+                           for k in launches}
+        del spair
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    # 21b: the dry run on the fake (16, 16) mesh, traced on fake CUDA
+    # tensors and again on fake CPU ones (a build without CUDA traces
+    # those): the two records must agree
+    t0 = time.monotonic()
+    recs = {}
+    for fdev in ("cuda", "cpu"):
+        fmesh = make_production_mesh(device_type=fdev)
+        try:
+            allocated = torch.cuda.memory_allocated()
+            recs[fdev] = dryrun.dryrun_cell(
+                "qwen3-14b", "train_4k", fmesh, verbose=False,
+                microbatch=q["dryrun_microbatch"],
+                programs=["local_step", "sync_step"])
+            if torch.cuda.memory_allocated() != allocated:
+                raise AssertionError("phase 21b: the dry run allocated on "
+                                     "the card")
+        finally:
+            dist.destroy_process_group()
+    rec = recs["cuda"]
+    for p in rec["programs"]:
+        log(f"[mesh] 21b dry run qwen3-14b x train_4k on the fake (16, 16) "
+            f"mesh, {p['program']} (microbatch {q['dryrun_microbatch']}): "
+            f"per-rank peak {p['memory']['peak_bytes']} B, arguments "
+            f"{p['memory']['argument_bytes']} B, {p['cost']['flops']:.4e} "
+            f"FLOPs, link bytes by axis {p['collectives']['by_axes']}, "
+            f"by kind {p['collectives']['by_kind']}, "
+            f"kernels {p['kernels']}")
+    same = recs["cpu"]["programs"] == rec["programs"]
+    log(f"[mesh] 21b the trace on fake CPU tensors "
+        f"{'equals' if same else 'DIFFERS from'} the trace on fake CUDA "
+        f"tensors")
+    if not same:
+        raise AssertionError(f"phase 21b: CPU trace {recs['cpu']['programs']}"
+                             f" against CUDA trace {rec['programs']}")
+    local, sync = rec["programs"]
+    if not (sum(v for k, v in local["collectives"]["by_axes"].items()
+                if "data" in k) < 1e5
+            < sum(v for k, v in sync["collectives"]["by_axes"].items()
+                  if "data" in k)):
+        raise AssertionError(f"phase 21b: client-axis traffic {rec}")
+    out["dryrun"] = {"microbatch": q["dryrun_microbatch"],
+                     "seconds": time.monotonic() - t0,
+                     "programs": rec["programs"]}
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5131,7 +5350,16 @@ def main() -> int:
                                     + rg["serve_ckpt"]["launches"]
                                     + rg["serve_vlm"]["launches"])
     log(f"[time] phase 19: {time.monotonic() - t0:.1f} s")
-    log(f"[time] phases 2-19: {time.monotonic() - t_start:.1f} s")
+
+    # phase 21: the mesh — qwen3-14b on a 1x1 mesh over NCCL against the
+    # device route (full width dense, SMOKE int8), then the dry run on the
+    # fake (16, 16) mesh
+    t0 = time.monotonic()
+    mesh_run = run_mesh_phase(torch)
+    for k in TRAIN_KERNELS + ("flash_attention",):
+        launches[k] += mesh_run["launches"][k]
+    log(f"[time] phase 21: {time.monotonic() - t0:.1f} s")
+    log(f"[time] phases 2-21: {time.monotonic() - t_start:.1f} s")
 
     # phase 20: summary
     meta = {
@@ -5253,7 +5481,8 @@ def main() -> int:
                     "adaptive": adaptive, "runtime_sync": runtime_sync,
                     "runtime_async": runtime_async, "hierarchical": hier,
                     "cnn": cnn_run, "lm_train": lm, "mamba2": m2,
-                    "moe_mla": mm, "rglru_frontend": rg, "card": smi}))
+                    "moe_mla": mm, "rglru_frontend": rg, "mesh": mesh_run,
+                    "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

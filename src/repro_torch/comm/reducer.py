@@ -11,7 +11,10 @@ steps it uploads
 and the server forms the next consensus ``ref' = ref + mean_i m_i``.
 
 Reducers are functions of (stacked replicas, state, rng) on dict/list
-trees of tensors; the state keeps one tree structure across calls.
+trees of tensors; the state keeps one tree structure across calls. On a
+device mesh they take each leaf's ``comm.shards.LeafShards`` and run on
+the rank's block of it: the dense mean all-reduced over the client axes,
+int8 codes and scales all-gathered over them (``shards=``).
 ``rng`` is a key (``utils.rng``): the reducer folds the leaf index into
 it and draws the leaf's stochastic-rounding bits from the result, as the
 JAX package folds ``fold_in(rng, i)``.
@@ -51,20 +54,31 @@ class Reducer:
 
     name = "base"
 
-    def init_state(self, stacked):
-        """Residual/reference state for the stacked (N, ...) replica tree.
+    def init_state(self, stacked, shards=None):
+        """Residual/reference state for the stacked (N, ...) replica tree
+        (on a mesh, ``shards``: this rank's blocks).
 
         Call at run start, when all replicas are identical.
         """
         return None
 
-    def reduce(self, stacked, state, rng):
+    def reduce(self, stacked, state, rng, shards=None):
         """(stacked replicas, state, rng) -> (consensus tree, new state).
 
         The consensus tree has the leading client axis removed; callers
-        rebroadcast it to continue local training.
+        rebroadcast it to continue local training. ``shards``: on a mesh,
+        one ``LeafShards`` per leaf, the replicas and state being the
+        rank's blocks.
         """
-        raise NotImplementedError
+        leaves, treedef = tree_flatten(stacked)
+        states = self.split_state(state, treedef)
+        shards = shards or [None] * len(leaves)
+        means, new_states = [], []
+        for i, (x, st, sh) in enumerate(zip(leaves, states, shards)):
+            consensus, ns = self.reduce_leaf(x, st, rng.fold_in(i), sh)
+            means.append(consensus)
+            new_states.append(ns)
+        return treedef.unflatten(means), self.join_state(new_states, treedef)
 
     # -- per-leaf protocol (streaming reduce) -------------------------------
 
@@ -77,7 +91,7 @@ class Reducer:
         """Inverse of ``split_state``: rebuild the tree-level state."""
         return None
 
-    def reduce_leaf(self, x, leaf_state, rng):
+    def reduce_leaf(self, x, leaf_state, rng, shards=None):
         """Reduce ONE stacked (N, ...) leaf -> (consensus leaf, new state).
 
         Leaves are independent, so calling this per leaf — in any order,
@@ -107,12 +121,16 @@ class DenseMean(Reducer):
 
     name = "dense"
 
-    def reduce(self, stacked, state, rng):
+    def reduce(self, stacked, state, rng, shards=None):
+        if shards is not None:
+            return super().reduce(stacked, state, rng, shards)
         return tree_map(lambda x: torch.mean(x, dim=0), stacked), state
 
-    def reduce_leaf(self, x, leaf_state, rng):
+    def reduce_leaf(self, x, leaf_state, rng, shards=None):
         """The same op as the tree-level mean, so per-leaf streaming gives
         the tree-level result exactly."""
+        if shards is not None:
+            return shards.clients.mean(x), leaf_state
         return torch.mean(x, dim=0), leaf_state
 
     def leaf_message_bytes(self, template) -> list:
@@ -124,18 +142,27 @@ class DenseMean(Reducer):
 class _DeltaReducer(Reducer):
     """Shared error-feedback-over-deltas machinery for compressed reducers.
 
-    Subclasses implement ``_compress(y, rng) -> (deq, mean)`` on an (N, M)
-    float32 block of per-client deltas: ``deq`` is each client's
-    decompressed message (N, M), ``mean`` its average (M,).
+    Subclasses implement ``_compress(y, rng, shards) -> (deq, mean)`` on
+    an (N, M) float32 block of per-client deltas: ``deq`` is each client's
+    decompressed message (N, M), ``mean`` its average (M,); on a mesh the
+    block is the rank's (N_local, M_local) and ``mean`` the average over
+    all N clients of its M_local elements.
     """
 
     error_feedback: bool = True
 
-    def init_state(self, stacked):
+    def init_state(self, stacked, shards=None):
+        """On a mesh (``shards``) ``ref`` is client 0's block, gathered
+        from the rank that holds it."""
+        if shards is None:
+            first = tree_map(lambda x: x[0], stacked)
+        else:
+            leaves, treedef = tree_flatten(stacked)
+            first = treedef.unflatten([sh.clients.gather(x[:1])[0]
+                                       for x, sh in zip(leaves, shards)])
         return {
             # ref: the shared consensus every client started the round from
-            "ref": tree_map(lambda x: x[0].to(torch.float32).clone(),
-                            stacked),
+            "ref": tree_map(lambda x: x.to(torch.float32).clone(), first),
             # res: per-client residual the compressor dropped so far
             "res": tree_map(lambda x: torch.zeros(x.shape, dtype=torch.float32,
                                                   device=x.device), stacked),
@@ -150,29 +177,20 @@ class _DeltaReducer(Reducer):
         return {"ref": treedef.unflatten([s["ref"] for s in leaf_states]),
                 "res": treedef.unflatten([s["res"] for s in leaf_states])}
 
-    def reduce_leaf(self, x, leaf_state, rng):
+    def reduce_leaf(self, x, leaf_state, rng, shards=None):
         """One leaf's EF round: compress (delta + residual), average, carry
         the compression error forward."""
         r, e = leaf_state["ref"], leaf_state["res"]
         n = x.shape[0]
         y = (x.to(torch.float32).reshape(n, -1)
              - r.reshape(1, -1) + e.reshape(n, -1))
-        deq, mean_delta = self._compress(y, rng)
+        deq, mean_delta = self._compress(y, rng, shards)
         consensus = r.reshape(-1) + mean_delta
         drop = (y - deq) if self.error_feedback else torch.zeros_like(y)
         return (consensus.reshape(r.shape).to(x.dtype),
                 {"ref": consensus.reshape(r.shape),
                  "res": drop.reshape(e.shape)})
 
-    def reduce(self, stacked, state, rng):
-        leaves, treedef = tree_flatten(stacked)
-        states = self.split_state(state, treedef)
-        means, new_states = [], []
-        for i, (x, st) in enumerate(zip(leaves, states)):
-            consensus, ns = self.reduce_leaf(x, st, rng.fold_in(i))
-            means.append(consensus)
-            new_states.append(ns)
-        return treedef.unflatten(means), self.join_state(new_states, treedef)
 
 
 @dataclass(frozen=True, repr=False)
@@ -193,16 +211,28 @@ class QuantizedMean(_DeltaReducer):
     def name(self):
         return f"int{self.bits}" + ("" if self.error_feedback else "-noef")
 
-    def _compress(self, y, rng):
+    def _compress(self, y, rng, shards=None):
         scales = Q.compute_scale(y, dim=1)
-        if self.stochastic:
-            rbits = rng.bits(y.shape)
-        else:
+        if shards is not None:
+            # the scale is the max over the whole leaf of each client
+            scales = shards.replica_max(scales)
+        if not self.stochastic:
             # 1 << 31 as a uint32 word (u = 0.5), carried as int32
             rbits = torch.full(y.shape, -2 ** 31, dtype=torch.int32,
                                device=y.device)
+        elif shards is not None:
+            rbits = shards.local_bits(rng)
+        else:
+            rbits = rng.bits(y.shape)
         q = Q.encode_leaf(y, rbits, scales, bits=self.bits)
-        return Q.decode_mean_leaf(q, scales, bits=self.bits)
+        if shards is None:
+            return Q.decode_mean_leaf(q, scales, bits=self.bits)
+        # every client's codes and scales, in client order: each rank
+        # averages its M_local columns over all N clients
+        deq = q.to(torch.float32) * (scales[:, None] / Q.qmax_for(self.bits))
+        mean = Q.dequant_mean(shards.clients.gather(q),
+                              shards.clients.gather(scales), bits=self.bits)
+        return deq, mean
 
     def leaf_message_bytes(self, template) -> list:
         # bits-wide codes (packed) + one f32 scale per leaf
@@ -229,7 +259,11 @@ class TopKMean(_DeltaReducer):
     def _k(self, size: int) -> int:
         return max(1, min(size, int(round(self.frac * size))))
 
-    def _compress(self, y, rng):
+    def _compress(self, y, rng, shards=None):
+        if shards is not None:
+            raise NotImplementedError("top-k rounds on a device mesh are "
+                                      "not ported (ROADMAP queue 1: "
+                                      "sharded training)")
         n = y.shape[0]
         k = self._k(y.shape[1])
         idx = torch.topk(torch.abs(y), k, dim=1).indices
@@ -274,7 +308,10 @@ class StalenessWeightedMean(_DeltaReducer):
         """Merge weight for a message that is ``staleness`` cycles late."""
         return (1.0 + max(0.0, float(staleness))) ** (-self.decay)
 
-    def _compress(self, y, rng):
+    def _compress(self, y, rng, shards=None):
+        if shards is not None:
+            raise NotImplementedError("asynchronous rounds run on one "
+                                      "device")
         if self.compress == "dense":
             return y, torch.mean(y, dim=0)
         return QuantizedMean(bits=self.bits)._compress(y, rng)
@@ -340,7 +377,7 @@ def supports_leaf_bytes(reducer: Reducer) -> bool:
     return type(reducer).leaf_message_bytes is not Reducer.leaf_message_bytes
 
 
-def reduce_streaming(reducer: Reducer, stacked, state, rng):
+def reduce_streaming(reducer: Reducer, stacked, state, rng, shards=None):
     """One streaming round: reduce the stacked replica tree leaf by leaf.
 
     Leaves run in *reverse-layer order* — the order they finish their
@@ -351,11 +388,12 @@ def reduce_streaming(reducer: Reducer, stacked, state, rng):
     """
     leaves, treedef = tree_flatten(stacked)
     states = reducer.split_state(state, treedef)
+    shards = shards or [None] * len(leaves)
     out = [None] * len(leaves)
     new = [None] * len(leaves)
     for i in reversed(range(len(leaves))):
         out[i], new[i] = reducer.reduce_leaf(leaves[i], states[i],
-                                             rng.fold_in(i))
+                                             rng.fold_in(i), shards[i])
     return treedef.unflatten(out), reducer.join_state(new, treedef)
 
 

@@ -1,5 +1,5 @@
-"""Local-SGD step builders for transformer training, the clients on one
-device.
+"""Local-SGD step builders for transformer training: the clients on one
+device, or split over a device mesh.
 
 The port of ``src/repro/core/local_sgd.py``. The training state is
 ``{"params": (C, ...), "opt": (C, ...), "step": int}``: every leaf carries
@@ -26,33 +26,46 @@ reduces the reference's leaves.
     the step (SyncSGD within a pod).
 
 Unlike the reference's pure functions, both steps update the state's
-tensors in place and return the state. The reference's ``mesh`` argument
-becomes ``device``; what needs a device mesh (``batch_spec``,
-``state_shardings``, ``init_state_shape``) raises until sharded training
-is ported.
+tensors in place and return the state.
+
+On a device mesh (``build_train_steps(cfg, mesh)``, a ``DeviceMesh`` from
+``launch/mesh.py``) the state's leaves are DTensors placed by
+``state_shardings`` (``place_state``): the client dim split over the
+client axes, the other dims by the sharding rules. The local step loops
+over this rank's clients and issues no collective on the client axes
+(the reference's "local step: NO client-axis comm"), apart from the
+loss metric's one scalar. Where the replica axes (the mesh dims that are
+not client axes) have one rank, a client's forward and backward run on
+plain local tensors, the device route's code (so a 1×1 mesh is bit-equal
+to it); otherwise on DTensors over the replica axes, DTensor's
+propagation and the ``shard`` constraints standing in for GSPMD and the
+kernels running on local shards (``local_map``). The update is one
+fused-update launch per client on its local shards. The sync round
+reduces the rank's blocks over the client axes (``comm/shards.py``).
 """
 from __future__ import annotations
 
+import math
 from typing import Callable, Optional
 
 import torch
 
 from repro_torch.comm import get_reducer
 from repro_torch.comm.reducer import DenseMean, reduce_streaming
+from repro_torch.comm.shards import (LeafShards, client_group, over,
+                                     row_placements)
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import _copy_broadcast_, resolve_device
 from repro_torch.engine.topology import Hierarchical
 from repro_torch.models import transformer as TF
 from repro_torch.optim import make_optimizer
+from repro_torch.sharding.rules import (NamedSharding, P, axis_sizes,
+                                        distribute, feasible_specs,
+                                        from_local, is_dtensor, mesh_context,
+                                        param_specs, submesh)
 from repro_torch.utils.rng import TorchKey
 from repro_torch.utils.tree import (tree_broadcast_leading, tree_flatten,
                                     tree_leaves, tree_map, tree_mean_leading)
-
-
-def _needs_mesh(what: str):
-    return NotImplementedError(
-        f"{what} needs a device mesh, which is not ported yet (ROADMAP "
-        f"queue 1: sharded training)")
 
 
 # ---------------------------------------------------------------------------
@@ -92,9 +105,135 @@ def _finish_round(state, consensus, **extra):
     return dict(state, **extra)
 
 
+# ---------------------------------------------------------------------------
+# The mesh: local blocks, placements, the client group
+# ---------------------------------------------------------------------------
+
+def is_mesh(x) -> bool:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    return isinstance(x, DeviceMesh)
+
+
+def mesh_device(mesh) -> torch.device:
+    """The device of this rank's blocks (a fake mesh's fake CUDA tensors,
+    in a process with no card, sit on cuda:0)."""
+    if mesh.device_type == "cuda":
+        return torch.device("cuda", torch.cuda.current_device()
+                            if torch.cuda.is_available() else 0)
+    return torch.device(mesh.device_type)
+
+
+def _axes_tuple(client_axis) -> tuple:
+    return (tuple(client_axis) if isinstance(client_axis, (tuple, list))
+            else (client_axis,))
+
+
+def _local(x):
+    """A leaf's block on this rank: a DTensor's local tensor; a plain
+    tensor is its own (a mesh whose ranks hold whole leaves)."""
+    return x.to_local() if is_dtensor(x) else x
+
+
+def _leaf_placements(x, mesh):
+    if is_dtensor(x):
+        return tuple(x.placements)
+    if mesh.size() != 1:
+        raise ValueError("a plain tensor in a state on a mesh of "
+                         f"{mesh.size()} ranks: place the state first "
+                         "(place_state)")
+    from torch.distributed.tensor import Replicate
+
+    return (Replicate(),) * mesh.ndim
+
+
+def _mesh_shards(tree, mesh, client_axes):
+    """(local blocks tree, one LeafShards a leaf) of a stacked tree."""
+    leaves, treedef = tree_flatten(tree)
+    group = client_group(mesh, client_axes, leaves[0].shape[0])
+    shards = [LeafShards(group, x.shape, _leaf_placements(x, mesh))
+              for x in leaves]
+    return treedef.unflatten([_local(x) for x in leaves]), shards
+
+
+def _wrap_delta_state(st, shards, mesh):
+    """A compressed reducer's state on this rank's blocks → DTensors:
+    ``ref`` placed as a row of its leaf, ``res`` as the leaf."""
+    if st is None:
+        return None
+    refs, treedef = tree_flatten(st["ref"])
+    res = treedef.flatten_up_to(st["res"])
+    return {"ref": treedef.unflatten([
+                from_local(r, mesh, row_placements(sh.placements,
+                                                   len(sh.shape)),
+                           sh.shape[1:]) for r, sh in zip(refs, shards)]),
+            "res": treedef.unflatten([
+                from_local(e, mesh, sh.placements, sh.shape)
+                for e, sh in zip(res, shards)])}
+
+
+def _local_comm(comm):
+    return tree_map(_local, comm) if comm is not None else None
+
+
+# ---------------------------------------------------------------------------
+# Sync round
+# ---------------------------------------------------------------------------
+
+def _build_mesh_sync_step(reducer, mesh, client_axis, base_seed: int,
+                          streaming: bool, rng, topo=None):
+    """The sync round on a mesh: the reducer (or the two-level ``topo``)
+    on this rank's blocks, its state kept as DTensors."""
+    caxes = _axes_tuple(client_axis)
+    dense = isinstance(reducer, DenseMean)
+
+    def sync_step(state):
+        params, shards = _mesh_shards(state["params"], mesh, caxes)
+        opt, _ = _mesh_shards(state["opt"], mesh, caxes)
+        key = _round_key(rng, base_seed, params, state["step"])
+        if (topo.all_dense if topo is not None else dense):
+            if streaming:
+                consensus, _ = reduce_streaming(reducer, params, None, key,
+                                                shards)
+            else:
+                consensus, _ = reducer.reduce(params, None, key, shards)
+            extra = {}
+        elif topo is not None:
+            n = shards[0].shape[0]
+            if n % topo.n_pods:
+                raise ValueError(f"{n} client replicas not divisible into "
+                                 f"{topo.n_pods} pods")
+            comm = state.get("comm")
+            comm = (topo.init_state(params, shards) if comm is None
+                    else {"intra": comm["intra"],
+                          "inter": _local_comm(comm["inter"])})
+            consensus, comm = topo.reduce(params, comm, key, shards)
+            pods = [over(sh, ("pod",), topo.n_pods) for sh in shards]
+            extra = {"comm": {"intra": comm["intra"],
+                              "inter": _wrap_delta_state(comm["inter"],
+                                                         pods, mesh)}}
+        else:
+            comm = state.get("comm")
+            comm = (reducer.init_state(params, shards) if comm is None
+                    else _local_comm(comm))
+            if streaming:
+                consensus, comm = reduce_streaming(reducer, params, comm,
+                                                   key, shards)
+            else:
+                consensus, comm = reducer.reduce(params, comm, key, shards)
+            extra = {"comm": _wrap_delta_state(comm, shards, mesh)}
+        _copy_broadcast_(params, consensus)
+        group = shards[0].clients
+        _copy_broadcast_(opt, tree_map(group.mean, opt))
+        return dict(state, **extra)
+
+    return sync_step
+
+
 def build_sync_step(reducer=None, *, base_seed: int = 0,
                     streaming: bool = False, hierarchical: bool = False,
-                    n_pods: int = 2, inter_reducer="int8", rng=None):
+                    n_pods: int = 2, inter_reducer="int8", rng=None,
+                    mesh=None, client_axis="data"):
     """Reducer-aware Algorithm 1 line 5: the parameter-averaging round.
 
     Returns ``sync_step(state) -> state``, in place. With the default
@@ -112,6 +251,14 @@ def build_sync_step(reducer=None, *, base_seed: int = 0,
     contiguous pods of clients (``engine.Hierarchical``): ``reducer``
     intra-pod, ``inter_reducer`` over the pod means; ``n_pods=1`` and
     dense∘dense give the flat round exactly.
+
+    ``mesh``: a DeviceMesh holding the state split over ``client_axis``
+    (the two-level round: ``("pod", "data")``, its pods the mesh's
+    ``pod`` axis); the round then runs on each rank's blocks — dense: an
+    all-reduce over the client axes; int8: the codes and scales
+    all-gathered over them, each rank's columns averaged by
+    ``dequant_mean``; two-level: the intra hop over ``data``, the inter
+    hop over ``pod``.
     """
     reducer = get_reducer(reducer)
     dense = isinstance(reducer, DenseMean)
@@ -121,26 +268,32 @@ def build_sync_step(reducer=None, *, base_seed: int = 0,
             raise ValueError(f"n_pods must be >= 1, got {n_pods}")
         if n_pods > 1:
             return _build_two_level_sync_step(reducer, n_pods, inter_reducer,
-                                              base_seed, streaming, rng)
+                                              base_seed, streaming, rng,
+                                              mesh, client_axis)
         # one pod has no inter-pod hop: the flat round with the intra
         # reducer
 
-    def sync_step(state):
-        params = state["params"]
-        key = _round_key(rng, base_seed, params, state["step"])
-        if dense and not streaming:
-            return _finish_round(state, tree_mean_leading(params))
-        if dense:
-            consensus, _ = reduce_streaming(reducer, params, None, key)
-            return _finish_round(state, consensus)
-        comm = state.get("comm")
-        if comm is None:
-            comm = reducer.init_state(params)
-        if streaming:
-            consensus, comm = reduce_streaming(reducer, params, comm, key)
-        else:
-            consensus, comm = reducer.reduce(params, comm, key)
-        return _finish_round(state, consensus, comm=comm)
+    if mesh is not None:
+        sync_step = _build_mesh_sync_step(reducer, mesh, client_axis,
+                                          base_seed, streaming, rng)
+    else:
+        def sync_step(state):
+            params = state["params"]
+            key = _round_key(rng, base_seed, params, state["step"])
+            if dense and not streaming:
+                return _finish_round(state, tree_mean_leading(params))
+            if dense:
+                consensus, _ = reduce_streaming(reducer, params, None, key)
+                return _finish_round(state, consensus)
+            comm = state.get("comm")
+            if comm is None:
+                comm = reducer.init_state(params)
+            if streaming:
+                consensus, comm = reduce_streaming(reducer, params, comm,
+                                                   key)
+            else:
+                consensus, comm = reducer.reduce(params, comm, key)
+            return _finish_round(state, consensus, comm=comm)
 
     # the tags StagewiseDriver prices the round by
     sync_step.reducer = reducer
@@ -150,28 +303,38 @@ def build_sync_step(reducer=None, *, base_seed: int = 0,
 
 
 def _build_two_level_sync_step(intra, n_pods: int, inter_reducer,
-                               base_seed: int, streaming: bool, rng):
+                               base_seed: int, streaming: bool, rng,
+                               mesh=None, client_axis=("pod", "data")):
     """The hierarchical (n_pods > 1) round behind ``build_sync_step``: one
     ``Hierarchical.reduce`` a sync, the per-hop reducer state in
     ``state["comm"]`` (none for dense∘dense, as the flat dense round)."""
     topo = Hierarchical(n_pods=n_pods, intra=intra,
                         inter=get_reducer(inter_reducer), streaming=streaming)
 
-    def sync_step(state):
-        params = state["params"]
-        n = tree_leaves(params)[0].shape[0]
-        if n % n_pods:
-            raise ValueError(
-                f"{n} client replicas not divisible into {n_pods} pods")
-        key = _round_key(rng, base_seed, params, state["step"])
-        if topo.all_dense:
-            consensus, _ = topo.reduce(params, None, key)
-            return _finish_round(state, consensus)
-        comm = state.get("comm")
-        if comm is None:
-            comm = topo.init_state(params)
-        consensus, comm = topo.reduce(params, comm, key)
-        return _finish_round(state, consensus, comm=comm)
+    if mesh is not None:
+        sizes = axis_sizes(mesh)
+        if sizes.get("pod") != n_pods:
+            raise ValueError(f"the two-level round over {n_pods} pods on a "
+                             f"mesh with axes {sizes}: its pod axis must "
+                             f"have {n_pods} ranks")
+        sync_step = _build_mesh_sync_step(intra, mesh, client_axis,
+                                          base_seed, streaming, rng, topo)
+    else:
+        def sync_step(state):
+            params = state["params"]
+            n = tree_leaves(params)[0].shape[0]
+            if n % n_pods:
+                raise ValueError(
+                    f"{n} client replicas not divisible into {n_pods} pods")
+            key = _round_key(rng, base_seed, params, state["step"])
+            if topo.all_dense:
+                consensus, _ = topo.reduce(params, None, key)
+                return _finish_round(state, consensus)
+            comm = state.get("comm")
+            if comm is None:
+                comm = topo.init_state(params)
+            consensus, comm = topo.reduce(params, comm, key)
+            return _finish_round(state, consensus, comm=comm)
 
     sync_step.reducer = intra
     sync_step.streaming = streaming
@@ -179,6 +342,8 @@ def _build_two_level_sync_step(intra, n_pods: int, inter_reducer,
     sync_step.n_pods = n_pods
     sync_step.inter_reducer = topo.inter
     return sync_step
+
+
 
 
 def sync_step_tags(sync_step) -> dict:
@@ -211,6 +376,7 @@ def sync_step_tags(sync_step) -> dict:
     return tags
 
 
+
 # ---------------------------------------------------------------------------
 # Local steps
 # ---------------------------------------------------------------------------
@@ -224,7 +390,7 @@ def _mean_trees(trees):
     return tree_map(lambda *xs: torch.mean(torch.stack(xs), dim=0), *trees)
 
 
-def build_train_steps(cfg: ArchConfig, device=None, *,
+def build_train_steps(cfg: ArchConfig, mesh_or_device=None, *,
                       client_axis="data", optimizer: str = "sgd",
                       momentum: float = 0.0, weight_decay: float = 0.0,
                       loss_fn: Optional[Callable] = None,
@@ -244,25 +410,52 @@ def build_train_steps(cfg: ArchConfig, device=None, *,
     per_client_step(params, opt_state, batch, eta) -> (params, opt_state,
         loss): one client's step on its own trees, in place.
 
-    ``device``: where the state must live (None means CUDA and raises
-    without it). ``microbatch`` > 1 splits each client's batch into that
-    many gradient-accumulation slices (float32 sums). ``sync_grads``: the
-    SyncSGD baseline, every client steps with the clients' mean gradient.
+    ``mesh_or_device``: a DeviceMesh (the mesh route, see the module
+    docstring; the two-level round takes its pods from the mesh's ``pod``
+    axis), or the device the state must live on (None means CUDA and
+    raises without it). On a mesh a batch leaf is either the whole
+    (C, ...) batch, the same on every rank, of which each rank takes its
+    clients' rows (and, in pod-client mode, its ``data`` shard), or a
+    DTensor placed by ``batch_spec``. ``microbatch`` > 1 splits each
+    client's batch into that many gradient-accumulation slices (float32
+    sums). ``sync_grads``: the SyncSGD baseline, every client steps with
+    the clients' mean gradient.
     """
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    mesh = mesh_or_device if is_mesh(mesh_or_device) else None
+    if mesh is not None:
+        dev = mesh_device(mesh)
+    else:
+        dev = resolve_device(mesh_or_device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     loss_fn = loss_fn or lm_loss
     pod_clients = client_axis == "pod"
+    caxes = _axes_tuple(client_axis)
     two_level = inter_reducer is not None
     if two_level:
-        axes = (client_axis if isinstance(client_axis, (tuple, list))
-                else (client_axis,))
-        if "pod" not in axes:
+        if "pod" not in caxes:
             raise ValueError(
                 f"inter_reducer={inter_reducer!r} requests the two-level "
                 f"sync round, but client_axis={client_axis!r} has no 'pod' "
                 f"axis to cross — use client_axis=('pod', 'data')")
+        if mesh is not None:
+            if "pod" not in mesh.mesh_dim_names:
+                raise ValueError(
+                    f"inter_reducer={inter_reducer!r} requests the two-level "
+                    f"sync round on a mesh with axes "
+                    f"{tuple(mesh.mesh_dim_names)}: it has no 'pod' axis")
+            n_pods = axis_sizes(mesh)["pod"]
+    if mesh is not None:
+        missing = [a for a in caxes if a not in mesh.mesh_dim_names]
+        if missing:
+            raise ValueError(f"client_axis={client_axis!r}: the mesh has no "
+                             f"axes {missing}")
+        rep_axes = tuple(a for a in mesh.mesh_dim_names if a not in caxes)
+        rep_size = math.prod(axis_sizes(mesh)[a] for a in rep_axes)
+        rep_mesh = submesh(mesh, rep_axes) if rep_size > 1 else None
+        # a pod client's batch shards split over the mesh's `data` axis
+        n_data = (axis_sizes(mesh).get("data", 1)
+                  if pod_clients and "data" in rep_axes else 1)
     _, opt_update = make_optimizer(optimizer, momentum, weight_decay)
 
     def value_and_grad(params, batch):
@@ -272,20 +465,30 @@ def build_train_steps(cfg: ArchConfig, device=None, *,
                                     materialize_grads=True)
         return loss.detach(), treedef.unflatten(list(grads))
 
-    def shard_grad(params, batch):
+    def microbatches(batch):
         if microbatch == 1:
-            return value_and_grad(params, batch)
+            return [batch]
+        mb = tree_leaves(batch)[0].shape[0] // microbatch
+        return [tree_map(lambda x: x[i * mb:(i + 1) * mb], batch)
+                for i in range(microbatch)]
+
+    def accumulate(outs, params):
+        """The microbatches' mean loss and gradient (float32 sums), the
+        ``(loss, grads)`` pairs of ``outs`` taken one at a time."""
+        if microbatch == 1:
+            return next(iter(outs))
         loss_acc = 0.0
         g_acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
                                                device=p.device), params)
-        mb = tree_leaves(batch)[0].shape[0] // microbatch
-        for i in range(microbatch):
-            loss, g = value_and_grad(
-                params, tree_map(lambda x: x[i * mb:(i + 1) * mb], batch))
+        for loss, g in outs:
             loss_acc = loss_acc + loss
             g_acc = tree_map(torch.add, g_acc, g)
         inv = 1.0 / microbatch
         return loss_acc * inv, tree_map(lambda g: g * inv, g_acc)
+
+    def shard_grad(params, batch):
+        return accumulate((value_and_grad(params, b)
+                           for b in microbatches(batch)), params)
 
     def client_grad(params, batch):
         """(loss, grads) of one client; ``params`` are its row views."""
@@ -303,12 +506,15 @@ def build_train_steps(cfg: ArchConfig, device=None, *,
         opt_update(params, grads, opt_state, eta)
         return params, opt_state, loss
 
-    def train_step_local(state, batch, eta):
-        P, O = state["params"], state["opt"]
+    def check_device(P):
         for t in tree_leaves(P):
             if t.device != dev:
                 raise ValueError(f"train step built for {dev}, state on "
                                  f"{t.device}")
+
+    def train_step_local(state, batch, eta):
+        P, O = state["params"], state["opt"]
+        check_device(P)
         n = tree_leaves(P)[0].shape[0]
         if sync_grads:
             # SyncSGD baseline: every client steps with the mean gradient
@@ -326,11 +532,103 @@ def build_train_steps(cfg: ArchConfig, device=None, *,
         return dict(state, step=state["step"] + 1), {
             "loss": torch.mean(torch.stack(losses))}
 
-    sync_step = (build_sync_step(reducer, streaming=streaming,
-                                 hierarchical=True, n_pods=n_pods,
-                                 inter_reducer=inter_reducer, rng=rng)
-                 if two_level else
-                 build_sync_step(reducer, streaming=streaming, rng=rng))
+    # -- the mesh route ------------------------------------------------------
+
+    def dtensor_grad(params, placements, batch):
+        """(loss, local grads) of one client whose forward runs on
+        DTensors over the replica axes: ``params`` its local row blocks,
+        ``batch`` its local rows (pod-client mode: this rank's ``data``
+        shard)."""
+        from torch.distributed.tensor import Replicate, Shard
+        from torch.distributed.tensor.experimental import \
+            implicit_replication
+
+        leaves, treedef = tree_flatten(params)
+        live = [from_local(x.detach(), rep_mesh, pl, shape).requires_grad_()
+                for x, (pl, shape) in zip(leaves, placements)]
+        bpl = tuple(Shard(0) if a == "data" and pod_clients else Replicate()
+                    for a in rep_axes)
+        if pod_clients:
+            # (shards, per_shard, S) → one batch split over `data`
+            batch = tree_map(lambda x: x.flatten(0, 1), batch)
+
+        def wrap(x):
+            shape = (x.shape[0] * n_data,) + tuple(x.shape[1:])
+            return from_local(x.contiguous(), rep_mesh, bpl, shape)
+
+        def one(b):
+            loss = loss_fn(treedef.unflatten(live), cfg, tree_map(wrap, b))
+            grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                        materialize_grads=True)
+            return loss.detach().full_tensor(), treedef.unflatten([
+                g.redistribute(rep_mesh, pl).to_local()
+                for g, (pl, _) in zip(grads, placements)])
+
+        with mesh_context(mesh), implicit_replication():
+            return accumulate(map(one, microbatches(batch)), params)
+
+    def local_batch(batch, group):
+        """This rank's (C_local, ...) rows of the batch; in pod-client
+        mode (C_local, shards, per_shard, S), its part of the ``data``
+        shards."""
+        def one(x):
+            if is_dtensor(x):
+                return x.to_local()
+            x = x[group.index * group.n_local:
+                  (group.index + 1) * group.n_local]
+            if n_data > 1:
+                w = x.shape[1] // n_data
+                j = mesh.get_local_rank("data")
+                x = x[:, j * w:(j + 1) * w]
+            return x
+        return tree_map(one, batch)
+
+    def mesh_train_step_local(state, batch, eta):
+        P, shards = _mesh_shards(state["params"], mesh, caxes)
+        O = tree_map(_local, state["opt"])
+        check_device(P)
+        group = shards[0].clients
+        B = local_batch(batch, group)
+        names = mesh.mesh_dim_names
+        rows = [(tuple(row_placements(sh.placements, len(sh.shape))[
+                     names.index(a)] for a in rep_axes), sh.shape[1:])
+                for sh in shards]
+        if rep_mesh is None:
+            grad_of = client_grad
+        else:
+            grad_of = lambda p, b: dtensor_grad(p, rows, b)
+        if sync_grads:
+            # SyncSGD baseline: the mean over all C clients' gradients
+            outs = [grad_of(_rows(P, c), _rows(B, c))
+                    for c in range(group.n_local)]
+            grads = tree_map(lambda *gs: group.mean(torch.stack(gs)),
+                             *[g for _, g in outs])
+            for c in range(group.n_local):
+                opt_update(_rows(P, c), grads, _rows(O, c), eta)
+            losses = [l for l, _ in outs]
+        else:
+            # each client's update right after its gradient, as on one
+            # device: one client's gradients alive at a time
+            losses = []
+            for c in range(group.n_local):
+                loss, g = grad_of(_rows(P, c), _rows(B, c))
+                opt_update(_rows(P, c), g, _rows(O, c), eta)
+                losses.append(loss)
+        losses = torch.stack(losses)
+        loss = (torch.mean(losses) if group.group is None
+                else group.sum_scalar(torch.sum(losses)) / group.n_clients)
+        return dict(state, step=state["step"] + 1), {"loss": loss}
+
+    if two_level:
+        sync_step = build_sync_step(reducer, streaming=streaming,
+                                    hierarchical=True, n_pods=n_pods,
+                                    inter_reducer=inter_reducer, rng=rng,
+                                    mesh=mesh, client_axis=client_axis)
+    else:
+        sync_step = build_sync_step(reducer, streaming=streaming, rng=rng,
+                                    mesh=mesh, client_axis=client_axis)
+    if mesh is not None:
+        return mesh_train_step_local, sync_step, per_client_step
     return train_step_local, sync_step, per_client_step
 
 
@@ -355,14 +653,74 @@ def init_state(seed: int, cfg: ArchConfig, n_clients: int,
     return {"params": stacked, "opt": opt, "step": 0}
 
 
+def init_state_shape(cfg: ArchConfig, n_clients: int, optimizer: str = "sgd"):
+    """The state of ``init_state`` as meta tensors: shapes and types only,
+    nothing allocated (the reference's ``jax.eval_shape`` of it)."""
+    opt_init, _ = make_optimizer(optimizer)
+    params = TF.to_grouped(TF.init_params_shape(cfg), cfg)
+    stacked = tree_map(lambda x: x.unsqueeze(0).expand(
+        (n_clients,) + tuple(x.shape)).contiguous(), params)
+    opt = opt_init(stacked)
+    if "t" in opt:
+        opt["t"] = torch.zeros((n_clients,), dtype=opt["t"].dtype,
+                               device="meta")
+    return {"params": stacked, "opt": opt, "step": 0}
+
+
 def batch_spec(cfg: ArchConfig, client_axis, extra_data_axis: bool):
-    raise _needs_mesh("batch_spec")
+    """The batch's specs: the leading batch dim over the client axes and,
+    in pod-client mode, the intra-pod ``data`` axis."""
+    axes = list(_axes_tuple(client_axis)) if client_axis else []
+    if extra_data_axis:
+        axes.append("data")
+    lead = tuple(axes) if axes else None
+    spec = {"tokens": P(lead, None), "labels": P(lead, None)}
+    if cfg.frontend:
+        spec["frontend"] = P(lead, None, None)
+    return spec
 
 
 def state_shardings(cfg: ArchConfig, mesh, params_shape, opt_shape,
-                    client_axis: str = "data"):
-    raise _needs_mesh("state_shardings")
+                    client_axis="data"):
+    """The training state's shardings (``NamedSharding``: the mesh, the
+    spec and its DTensor placements), the rules' specs made feasible on
+    ``mesh``; pod-client mode (``client_axis == "pod"``) adds an FSDP
+    split of each replica over the intra-pod ``data`` axis."""
+    fsdp = "data" if client_axis == "pod" else None
+    pspecs = feasible_specs(
+        param_specs(params_shape, client_axis=client_axis, fsdp_axis=fsdp),
+        params_shape, mesh)
+    ospecs = ({"mu": pspecs} if "mu" in opt_shape else
+              {k: (pspecs if k in ("m", "v") else P()) for k in opt_shape})
+    to_sh = lambda tree: tree_map(lambda s: NamedSharding(mesh, s), tree)
+    return {"params": to_sh(pspecs), "opt": to_sh(ospecs),
+            "step": NamedSharding(mesh, P())}
 
 
-def init_state_shape(cfg: ArchConfig, n_clients: int, optimizer: str = "sgd"):
-    raise _needs_mesh("init_state_shape")
+def place_state(state, mesh, client_axis="data", shardings=None):
+    """A state of whole tensors (``init_state``, a converted reference
+    state) → DTensors on ``mesh`` placed by ``state_shardings`` (or the
+    ``shardings`` given): each rank keeps its own block, the same tensors'
+    slices on every rank, no communication (a one-rank mesh keeps the
+    tensors themselves). A ``comm`` key is not placed: the first round
+    makes it on the mesh."""
+    if shardings is None:
+        shardings = state_shardings(None, mesh, state["params"],
+                                    state["opt"], client_axis)
+
+    out = {k: v for k, v in state.items() if k != "comm"}
+    out["params"] = distribute(state["params"], shardings["params"])
+    out["opt"] = distribute(state["opt"], shardings["opt"])
+    return out
+
+
+def gather_state(state):
+    """The whole tensors of a placed state (``full_tensor`` of every
+    DTensor leaf, a collective on every rank; on a one-rank mesh the local
+    tensors themselves)."""
+    def whole(x):
+        if not is_dtensor(x):
+            return x
+        return x.to_local() if x.device_mesh.size() == 1 else x.full_tensor()
+
+    return tree_map(whole, state)

@@ -5,8 +5,11 @@ through an empty cache (one flash-attention launch per attention layer,
 one SSD-kernel launch per Mamba2 layer), a frontend arch's embeddings
 first; a serve step decodes ONE new token per batch row against the cache
 (ring buffer of the window for local layers, the recurrent state update
-for Mamba2 and RG-LRU layers). Sharded serving
-(``serve_shardings``) waits for the sharding slice.
+for Mamba2 and RG-LRU layers). ``serve_shardings`` places a served model
+on a device mesh: the parameters replicated over the data axes and split
+on ``model`` by the sharding rules, the cache's batch (or, for a batch
+too small to split, its sequence) over the data axes and its heads on
+``model``, the tokens' batch over the data axes.
 """
 from __future__ import annotations
 
@@ -14,6 +17,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import transformer as TF
+from repro_torch.sharding.rules import (NamedSharding, P, cache_specs,
+                                        feasible_specs, param_specs)
+from repro_torch.utils.tree import tree_map
 
 
 def build_serve_step(cfg: ArchConfig):
@@ -33,6 +39,19 @@ def build_prefill_step(cfg: ArchConfig):
         return TF.prefill(params, cfg, tokens, cache, frontend)
 
     return prefill_step
+
+
+def serve_shardings(cfg: ArchConfig, mesh, params_shape, cache_shape,
+                    data_axes=("data",), seq_axes=()):
+    """(params, cache, tokens) shardings (``NamedSharding`` trees) on
+    ``mesh``, the rules' specs made feasible on it."""
+    pspecs = feasible_specs(param_specs(params_shape), params_shape, mesh)
+    cspecs = feasible_specs(cache_specs(cache_shape, data_axes=data_axes,
+                                        seq_axes=seq_axes), cache_shape,
+                            mesh)
+    to_sh = lambda tree: tree_map(lambda s: NamedSharding(mesh, s), tree)
+    tok = NamedSharding(mesh, P(tuple(data_axes) or None, None))
+    return to_sh(pspecs), to_sh(cspecs), tok
 
 
 def _top2_margin(logits):

@@ -227,6 +227,12 @@ class Hierarchical(Topology):
     row range of each leaf); no reducer keeps a view in its state — the
     compressed reducers form a new delta block and a new consensus — so
     writing the consensus back into the replicas leaves the state intact.
+
+    On a device mesh (``shards=``, one ``comm.shards.LeafShards`` per leaf
+    over the (pod, data) client grid) the intra hop is a dense all-reduce
+    over ``data`` and the inter hop the inter reducer's round over
+    ``pod``, each rank holding its pod's mean; a compressed intra hop is
+    not ported to the mesh.
     """
 
     n_pods: int = 2
@@ -265,14 +271,64 @@ class Hierarchical(Topology):
         return torch.mean(x.reshape((P, x.shape[0] // P) + x.shape[1:]),
                           dim=1)
 
-    def init_state(self, stacked):
+    def init_state(self, stacked, shards=None):
+        if shards is not None:
+            from repro_torch.comm.shards import over
+
+            n = shards[0].shape[0]
+            self._check_pods(n)
+            self._mesh_intra()
+            P = self.n_pods
+            leaves, treedef = tree_flatten(stacked)
+            means = [over(sh, ("data",), n // P).clients.mean(x)[None]
+                     for x, sh in zip(leaves, shards)]
+            return {"intra": (None,) * P,
+                    "inter": self.inter.init_state(
+                        treedef.unflatten(means),
+                        [over(sh, ("pod",), P) for sh in shards])}
         self._check_pods(tree_leaves(stacked)[0].shape[0])
         return {"intra": tuple(self.intra.init_state(p)
                                for p in self._pods(stacked)),
                 "inter": self.inter.init_state(
                     tree_map(self._pod_mean, stacked))}
 
-    def reduce(self, stacked, state, rng):
+    def _mesh_intra(self):
+        if type(self.intra) is not DenseMean:
+            raise NotImplementedError(
+                f"a {self.intra.name} intra-pod hop on a device mesh is not "
+                f"ported (ROADMAP queue 1: sharded training); the mesh "
+                f"runs a dense one")
+
+    def _reduce_on_mesh(self, stacked, state, rng, shards):
+        """Each rank's block: its pod's mean over ``data``, then the
+        inter reducer over ``pod`` (per leaf, in reverse-layer order when
+        streaming: the same numbers)."""
+        from repro_torch.comm.shards import over
+
+        if self.all_dense:
+            return DenseMean().reduce(stacked, state, rng, shards)
+        self._mesh_intra()
+        P = self.n_pods
+        n = shards[0].shape[0]
+        self._check_pods(n)
+        leaves, treedef = tree_flatten(stacked)
+        inter_states = self.inter.split_state(state["inter"], treedef)
+        key = rng.fold_in(P)
+        out = [None] * len(leaves)
+        order = range(len(leaves))
+        for i in (reversed(order) if self.streaming else order):
+            sh = shards[i]
+            pod_mean = over(sh, ("data",), n // P).clients.mean(leaves[i])
+            out[i], inter_states[i] = self.inter.reduce_leaf(
+                pod_mean[None], inter_states[i], key.fold_in(i),
+                over(sh, ("pod",), P))
+        return treedef.unflatten(out), {
+            "intra": state["intra"],
+            "inter": self.inter.join_state(inter_states, treedef)}
+
+    def reduce(self, stacked, state, rng, shards=None):
+        if shards is not None:
+            return self._reduce_on_mesh(stacked, state, rng, shards)
         if self.streaming:
             return self._reduce_streaming(stacked, state, rng)
         if self.all_dense:

@@ -15,7 +15,9 @@ from typing import Optional
 
 import torch
 
+from repro_torch.kernels import trace
 from repro_torch.kernels.build import check, library
+from repro_torch.kernels.trace import is_fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128, 256)
@@ -56,7 +58,7 @@ def flash_attention(q, k, v, *, causal: bool = True,
     back.
     """
     check_inputs(q, k, v)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not is_fake(q):
         raise ValueError(f"flash_attention: the kernel takes CUDA tensors, "
                          f"got {q.device}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -66,6 +68,12 @@ def flash_attention(q, k, v, *, causal: bool = True,
     Sk, KV = k.shape[1], k.shape[2]
     if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if is_fake(q):   # a traced call: the op's shapes, nothing launched
+        return trace.flash_attention_op(q, k, v, bool(causal),
+                                        int(window or 0),
+                                        float(softcap or 0.0),
+                                        float(scale if scale is not None
+                                              else 1.0 / (D ** 0.5)))
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} is not contiguous")

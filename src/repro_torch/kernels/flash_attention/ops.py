@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
+from repro_torch.kernels.trace import is_fake
 
 
 def plain_attention(q, k, v, causal, window, softcap, scale):
@@ -29,7 +30,7 @@ def plain_attention(q, k, v, causal, window, softcap, scale):
 
 
 def _route(q, k, v, causal, window, softcap, scale):
-    if q.device.type == "cuda":
+    if q.device.type == "cuda" or is_fake(q):   # a trace: the kernel's op
         return K.flash_attention(q, k, v, causal=causal, window=window,
                                  softcap=softcap, scale=scale)
     if q.device.type != "cpu":
@@ -65,3 +66,4 @@ def flash_attention(q, k, v, *, causal: bool = True,
     """q: (B, Sq, H, D); k, v: (B, Sk, KV, D) → (B, Sq, H, D) in q's type.
     Differentiable in q, k and v on both routes."""
     return FlashAttention.apply(q, k, v, causal, window, softcap, scale)
+

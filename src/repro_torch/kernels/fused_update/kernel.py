@@ -16,7 +16,9 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import trace
 from repro_torch.kernels.build import check, library
+from repro_torch.kernels.trace import is_fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_LEAVES = 64   # the kernel's leaf table; a longer list takes more launches
@@ -64,9 +66,14 @@ def fused_sgd_update_leaves(ps, ms, gs, *, eta: float, beta: float = 0.0,
     groups = {}
     for p, m, g in zip(ps, ms, gs):
         check_inputs(p, m, g)
-        if p.device.type != "cuda":
+        if p.device.type != "cuda" and not is_fake(p):
             raise ValueError(f"fused_sgd_update: the kernel takes CUDA "
                              f"tensors, got {p.device}")
+    if ps and is_fake(ps[0]):   # a traced call: nothing launched
+        trace.fused_sgd_update_op(list(ps), list(ms), list(gs), float(eta),
+                                  float(beta), float(wd))
+        return
+    for p, m, g in zip(ps, ms, gs):
         groups.setdefault((p.dtype, m.dtype, g.dtype, p.device), []).append(
             (p.data_ptr(), m.data_ptr(), g.data_ptr(), p.numel()))
     for (pt, mt, gt, dev), rows in groups.items():

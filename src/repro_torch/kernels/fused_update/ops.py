@@ -9,6 +9,7 @@ from __future__ import annotations
 from repro_torch.kernels.fused_update import ref as R
 from repro_torch.kernels.fused_update.kernel import (check_inputs,
                                                      fused_sgd_update_leaves)
+from repro_torch.kernels.trace import is_fake
 from repro_torch.utils.tree import tree_flatten
 
 
@@ -31,8 +32,8 @@ def tree_sgd_update_(params, moments, grads, *, eta, beta=0.0, wd=0.0):
     flat_p, treedef = tree_flatten(params)
     flat_m = treedef.flatten_up_to(moments)
     flat_g = treedef.flatten_up_to(grads)
-    kinds = {p.device.type for p in flat_p}
-    if kinds == {"cuda"}:
+    kinds = {"cuda" if is_fake(p) else p.device.type for p in flat_p}
+    if kinds == {"cuda"}:   # (a trace's fake tensors: the kernel's op)
         fused_sgd_update_leaves(flat_p, flat_m, flat_g, eta=eta, beta=beta,
                                 wd=wd)
         return params, moments

@@ -23,7 +23,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import trace
 from repro_torch.kernels.build import check, library
+from repro_torch.kernels.trace import is_fake
 
 
 def _qmax(bits: int) -> float:
@@ -99,6 +101,8 @@ def quantize_kernel(y, rand_bits, scales, *, bits: int = 8):
     float32 (N,). Returns int8 codes (N, M). CUDA tensors only."""
     qmax = _qmax(bits)
     check_quantize_inputs(y, rand_bits, scales)
+    if is_fake(y):   # a traced call: the op's shapes, nothing launched
+        return trace.quantize_op(y, rand_bits, scales, bits)
     _require_cuda(y, "quantize_kernel")
     n, cols = y.shape
     q = torch.empty((n, cols), dtype=torch.int8, device=y.device)
@@ -115,6 +119,8 @@ def dequant_mean_kernel(q, scales, *, bits: int = 8):
     CUDA tensors only."""
     qmax = _qmax(bits)
     check_dequant_inputs(q, scales)
+    if is_fake(q):
+        return trace.dequant_mean_op(q, scales, bits)
     _require_cuda(q, "dequant_mean_kernel")
     n, cols = q.shape
     out = torch.empty((cols,), dtype=torch.float32, device=q.device)

@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.quantize import ref as R
+from repro_torch.kernels.trace import is_fake
 from repro_torch.kernels.quantize.kernel import (
     check_dequant_inputs,
     check_quantize_inputs,
@@ -24,6 +25,8 @@ qmax_for = R.qmax_for
 
 
 def _route(t) -> str:
+    if is_fake(t):   # a trace: the kernels' ops
+        return "cuda"
     if t.device.type not in ("cuda", "cpu"):
         raise ValueError(f"quantize ops: no route for device {t.device}")
     return t.device.type

@@ -18,7 +18,9 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import trace
 from repro_torch.kernels.build import check, library
+from repro_torch.kernels.trace import is_fake
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 D_STATES = (16, 32, 128)   # the Pallas tests' and mamba2-2.7b's
@@ -70,7 +72,7 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     falls back.
     """
     check_inputs(x, dt, A, B, C, chunk, initial_state)
-    if x.device.type != "cuda":
+    if x.device.type != "cuda" and not is_fake(x):
         raise ValueError(f"ssd: the kernel takes CUDA tensors, got {x.device}")
     if x.dtype not in _DTYPE_CODE or B.dtype != x.dtype or C.dtype != x.dtype:
         raise TypeError(f"ssd: x, B, C must all be float32 or all bfloat16, "
@@ -88,6 +90,9 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
         raise ValueError(f"ssd: state dim {N} not in {D_STATES}")
     if Q > MAX_CHUNK:
         raise ValueError(f"ssd: chunk {Q} exceeds {MAX_CHUNK}")
+    if is_fake(x):   # a traced call: the op's shapes, nothing launched
+        y, state = trace.ssd_op(x, dt, A, B, C, chunk, initial_state)
+        return y, state
     named = [("x", x), ("dt", dt), ("A", A), ("B", B), ("C", C)]
     if initial_state is not None:
         named.append(("initial_state", initial_state))

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref as R
+from repro_torch.kernels.trace import is_fake
 
 
 def plain_ssd(x, dt, A, B, C, chunk, initial_state=None):
@@ -30,7 +31,7 @@ def plain_ssd(x, dt, A, B, C, chunk, initial_state=None):
 
 
 def _route(x, dt, A, B, C, chunk, initial_state):
-    if x.device.type == "cuda":
+    if x.device.type == "cuda" or is_fake(x):   # a trace: the kernel's op
         return K.ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
     if x.device.type != "cpu":
         raise ValueError(f"ssd: no route for device {x.device}")
@@ -84,3 +85,4 @@ def ssd(x, dt, A, B, C, *, chunk: int = 128, initial_state=None):
     every tensor input on both routes.
     """
     return SSD.apply(x, dt, A, B, C, initial_state, chunk)
+

@@ -16,6 +16,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.kernels.trace import masked_pairs as _attn_pairs
 from repro_torch.models.transformer import padded_vocab
 
 
@@ -28,15 +29,6 @@ class FlopsReport:
     model_flops: float         # 6·N_active·D (train) or 2·N_active·D (decode)
     hbm_bytes: float           # param + activation traffic estimate, global
     breakdown: dict
-
-
-def _attn_pairs(S: int, window, kind: str) -> float:
-    """Masked (q,k) pair count per sequence for one layer."""
-    if kind == "decode":
-        return float(min(S, window) if window else S)
-    if window and window < S:
-        return float(window) * S - window * (window - 1) / 2.0
-    return S * (S + 1) / 2.0
 
 
 def count_params(cfg: ArchConfig) -> tuple[float, float]:

@@ -1,8 +1,12 @@
 """Training launcher.
 
 Runs STL-SGD (or a baseline) on an arch with synthetic LM data: the
-clients' replicas on one device (``core/local_sgd.py``), stepped and
-averaged by ``core/stl_sgd.StagewiseDriver``.
+clients' replicas on one device, stepped and averaged by
+``core/stl_sgd.StagewiseDriver`` through the mesh route of
+``core/local_sgd.py`` on a 1×1 ``launch.mesh.make_host_mesh`` (a world-1
+process group, NCCL on the card and gloo on the CPU, started and ended
+here when none is running), as the reference's launcher builds its host
+mesh.
 
 Examples:
   # the smoke config on the CPU, through the kernels' plain versions
@@ -26,6 +30,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import get_arch
@@ -35,6 +40,7 @@ from repro_torch.core.simulate import resolve_device
 from repro_torch.core.stl_sgd import StagewiseDriver
 from repro_torch.data.synthetic import make_token_stream
 from repro_torch.engine import algorithm_names
+from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.utils.logging import RUN_ID, get_logger
 from repro_torch.utils.tree import tree_map
 
@@ -143,9 +149,20 @@ def main(argv=None):
 
     log.info("arch=%s algo=%s clients=%d device=%s", cfg.name, args.algo, C,
              dev)
+    started = not dist.is_initialized()
+    mesh = make_host_mesh(1, 1, device=dev)
+    try:
+        return _run(args, cfg, dev, tcfg, C, mesh)
+    finally:
+        if started:
+            dist.destroy_process_group()
+
+
+def _run(args, cfg, dev, tcfg, C, mesh):
     state = LS.init_state(args.seed, cfg, C, args.optimizer, device=dev)
+    # on the 1×1 mesh each leaf is its own local block
     train_fn, sync_fn, _ = LS.build_train_steps(
-        cfg, dev, optimizer=args.optimizer, momentum=args.momentum,
+        cfg, mesh, optimizer=args.optimizer, momentum=args.momentum,
         reducer=args.reducer, streaming=args.topology == "streaming")
     if args.topology == "hier":
         # the two-level round: args.reducer intra-pod, compressed inter-pod
@@ -162,7 +179,7 @@ def main(argv=None):
         def train_fn(state, batch, eta, center):
             # a step closing over the stage's center
             tl, _, _ = LS.build_train_steps(
-                cfg, dev, optimizer=args.optimizer, momentum=args.momentum,
+                cfg, mesh, optimizer=args.optimizer, momentum=args.momentum,
                 loss_fn=lambda p, c, b: pl(p, b, center))
             return tl(state, batch, eta)
 

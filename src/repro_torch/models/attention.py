@@ -45,6 +45,11 @@ from repro_torch.configs.base import ArchConfig, AttentionConfig
 from repro_torch.kernels.flash_attention.kernel import HEAD_DIMS
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.models.layers import apply_rope, dense_init, rms_norm, softcap
+from repro_torch.sharding import shard
+from repro_torch.sharding.rules import (MODEL_AXIS, contiguous_grad,
+                                        head_placements, is_dtensor,
+                                        local_shape_and_offset, model_size,
+                                        unshard_dim)
 
 NEG_INF = -2.0e38
 
@@ -114,6 +119,8 @@ def attend(q, k, v, bias, cap: Optional[float], scale: float):
     ``_attend_block``); decode calls it with Sq = 1, so the (Sq, Sk) scores
     stay small and the JAX package's q-chunking is not needed.
     """
+    if is_dtensor(q):
+        return _attend_on_shards(q, k, v, bias, cap, scale)
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV
@@ -129,11 +136,95 @@ def attend(q, k, v, bias, cap: Optional[float], scale: float):
     return out.reshape(B, Sq, H, v.shape[-1]).to(q.dtype)
 
 
+def _attend_on_shards(q, k, v, bias, cap, scale):
+    """``attend`` on each rank's block (``local_map``): the batch rows as
+    the cache splits them over the data axes, the heads split on `model`
+    where the KV heads divide, the cache's sequence whole (a cache split
+    by sequence is gathered: the softmax runs over all of it)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    split = k.shape[2] % model_size(q) == 0
+    names = q.device_mesh.mesh_dim_names
+
+    def place(x, heads):
+        out = []
+        for n, p in zip(names, x.placements):
+            if n == "model":
+                out.append(Shard(heads) if split and heads else Replicate())
+            else:
+                out.append(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                           else Replicate())
+        return tuple(out)
+
+    batch = place(k, None)   # the cache's batch split, nothing on model
+    kp = place(k, 2)
+    qp = tuple(kp)
+    bp = tuple(Shard(0) if isinstance(p, Shard) else Replicate()
+               for p in batch) if bias.dim() == 3 else \
+        (Replicate(),) * len(names)
+    return local_map(
+        lambda a, b, c, d: attend(a, b, c, d, cap, scale),
+        out_placements=list(qp), in_placements=(qp, kp, kp, bp),
+        device_mesh=q.device_mesh, redistribute_inputs=True)(q, k, v, bias)
+
+
+def _flash(q, k, v, **kw):
+    """``flash_attention``; on DTensors (a client's forward on a mesh) on
+    each rank's heads (``_flash_on_shards``)."""
+    if is_dtensor(q):
+        return _flash_on_shards(q, k, v, **kw)
+    return flash_attention(q, k, v, **kw)
+
+
+def _flash_on_shards(q, k, v, **kw):
+    """The kernel's Function on each rank's heads, through ``local_map``
+    (its saved tensors local).
+
+    Heads split on ``model`` where H does: Megatron's contiguous split, so
+    rank r holds q heads [r·Hl, (r+1)·Hl). Where the KV heads split too,
+    k and v split the same way. Where they do not (8 KV heads on 16
+    ranks), k and v are replicated and each rank takes the KV heads its q
+    heads read (group G = H / KV; needs Hl a multiple of G or G of Hl);
+    their gradients are then partial sums over the ranks. Otherwise every
+    rank computes every head."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    H, KV, m = q.shape[2], k.shape[2], model_size(q)
+    Hl, G = H // m, H // KV
+    cg = contiguous_grad
+    fn = lambda a, b, c: flash_attention(cg(a), cg(b), cg(c), **kw)
+    if H % m == 0 and KV % m == 0:
+        qp = kp = grad_kp = head_placements(q, 2, True)
+    elif H % m == 0 and (Hl % G == 0 or G % Hl == 0):
+        qp = head_placements(q, 2, True)
+        kp = head_placements(k, 2, False)
+        grad_kp = head_placements(k, 2, False, Partial())
+        lo = q.device_mesh.get_local_rank(MODEL_AXIS) * Hl // G
+        hi = lo + max(1, Hl // G)
+
+        def fn(a, b, c):
+            return flash_attention(cg(a), cg(b[:, :, lo:hi].contiguous()),
+                                   cg(c[:, :, lo:hi].contiguous()), **kw)
+    else:
+        qp = kp = grad_kp = head_placements(q, 2, False)
+    return local_map(fn, out_placements=list(qp),
+                     in_placements=(qp, kp, kp),
+                     in_grad_placements=(qp, grad_kp, grad_kp),
+                     device_mesh=q.device_mesh,
+                     redistribute_inputs=True)(q, k, v)
+
+
 # ---------------------------------------------------------------------------
 # GQA apply
 # ---------------------------------------------------------------------------
 
 def _split_heads(x, n, hd):
+    if is_dtensor(x) and n % model_size(x):
+        # on a mesh, heads that do not split over `model`: the columns
+        # are gathered before they are cut into heads
+        x = unshard_dim(x, -1)
     return x.reshape(x.shape[:-1] + (n, hd))
 
 
@@ -173,6 +264,9 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
     q = _split_heads(x @ params["wq"], att.n_heads, att.head_dim)
     k = _split_heads(x @ params["wk"], att.n_kv_heads, att.head_dim)
     v = _split_heads(x @ params["wv"], att.n_kv_heads, att.head_dim)
+    q = shard(q, None, None, "model", None)
+    k = shard(k, None, None, "model", None)
+    v = shard(v, None, None, "model", None)
     if att.qk_norm:
         q = rms_norm(q, params["q_norm"], eps)
         k = rms_norm(k, params["k_norm"], eps)
@@ -182,9 +276,9 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
 
     if cache is None or S > 1:
         # full sequence / prefill: the flash-attention kernel
-        out = flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                              causal=True, window=window,
-                              softcap=att.logit_softcap, scale=scale)
+        out = _flash(q.contiguous(), k.contiguous(), v.contiguous(),
+                     causal=True, window=window, softcap=att.logit_softcap,
+                     scale=scale)
         if cache is not None and kv_quant:
             for name, t in (("k", k), ("v", v)):
                 codes, s = _quant(t)
@@ -195,19 +289,18 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
             _write_tail(cache["v"], v)
     else:
         C = cache["k"].shape[1]
-        rows = torch.arange(B, device=x.device)
         slot = torch.remainder(cache_pos, C)
         if kv_quant:
             for name, t in (("k", k), ("v", v)):
                 codes, s = _quant(t[:, 0])
-                cache[name][rows, slot] = codes
-                cache[f"{name}_scale"][rows, slot] = s
+                write_rows(cache[name], slot, codes)
+                write_rows(cache[f"{name}_scale"], slot, s)
             # the whole cache, dequantised to the activation type
             kr = _dequant(cache["k"], cache["k_scale"], x.dtype)
             vr = _dequant(cache["v"], cache["v_scale"], x.dtype)
         else:
-            cache["k"][rows, slot] = k[:, 0].to(cache["k"].dtype)
-            cache["v"][rows, slot] = v[:, 0].to(cache["v"].dtype)
+            write_rows(cache["k"], slot, k[:, 0])
+            write_rows(cache["v"], slot, v[:, 0])
             kr, vr = cache["k"], cache["v"]
         pos_k = _cache_positions(C, cache_pos)                  # (B, C)
         bias = _mask_bias(pos_q.expand(B, 1), pos_k, window)    # (B, 1, C)
@@ -215,6 +308,43 @@ def apply_gqa(params, att: AttentionConfig, x, pos_q, *, window, eps,
 
     out = out.reshape(B, S, -1) @ params["wo"]
     return out, cache
+
+
+def write_rows(buf, slot, val):
+    """buf[b, slot[b]] = val[b] for every batch row b, in place, in buf's
+    type. On a mesh (DTensors) each rank writes its own rows and, with the
+    cache's sequence split over the data axes, only the slots it holds:
+    the rest of each row's write lands on the slot it already holds, with
+    the value it has, so no shape depends on the data."""
+    if not is_dtensor(buf):
+        rows = torch.arange(buf.shape[0], device=buf.device)
+        buf[rows, slot] = val.to(buf.dtype)
+        return
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = buf.device_mesh, tuple(buf.placements)
+    _, off = local_shape_and_offset(buf.shape, mesh, pl)
+    # slot and val: split by batch as buf is; val's other dims follow
+    # buf's minus the slot dim
+    rows_pl = tuple(Shard(0) if isinstance(p, Shard) and p.dim == 0
+                    else Replicate() for p in pl)
+    val_pl = tuple(p if not isinstance(p, Shard) or p.dim == 0
+                   else Replicate() if p.dim == 1 else Shard(p.dim - 1)
+                   for p in pl)
+
+    def local(b, s, v):
+        n = b.shape[1]
+        at = s - off[1]
+        inside = (at >= 0) & (at < n)
+        at = at.clamp(0, n - 1)
+        rows = torch.arange(b.shape[0], device=b.device)
+        keep = b[rows, at]
+        mask = inside.reshape((-1,) + (1,) * (keep.dim() - 1))
+        b[rows, at] = torch.where(mask, v.to(b.dtype), keep)
+
+    local_map(local, out_placements=None, in_placements=(pl, rows_pl, val_pl),
+              device_mesh=mesh, redistribute_inputs=True)(buf, slot, val)
 
 
 def _write_tail(buf, x):
@@ -228,9 +358,34 @@ def _write_tail(buf, x):
         if S % C:
             tail = torch.roll(tail, S % C, dims=1)
         buf.copy_(tail)
+    elif is_dtensor(buf):
+        _write_head_on_shards(buf, x)
     else:
         buf[:, :S].copy_(x)
     return buf
+
+
+def _write_head_on_shards(buf, x):
+    """``buf[:, :S] = x`` for a cache on a mesh: each rank writes the
+    positions its block holds (a slice of a DTensor along a split dim is a
+    copy, not a view, so writing through one would be lost)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    pl = tuple(buf.placements)
+    _, off = local_shape_and_offset(buf.shape, buf.device_mesh, pl)
+    S = x.shape[1]
+    xpl = tuple(Replicate() if isinstance(p, Shard) and p.dim == 1 else p
+                for p in pl)
+
+    def local(b, v):
+        lo, n = off[1], b.shape[1]
+        a, z = max(lo, 0), min(lo + n, S)
+        if a < z:
+            b[:, a - lo:z - lo].copy_(v[:, a:z])
+
+    local_map(local, out_placements=None, in_placements=(pl, xpl),
+              device_mesh=buf.device_mesh, redistribute_inputs=True)(buf, x)
 
 
 def _cache_positions(C: int, cache_pos):
@@ -284,8 +439,8 @@ def _padded_flash(q, k, v, D: int, *, window, softcap, scale):
     passed explicitly, and the output is cut back to Dv."""
     dv = v.shape[-1]
     pad = lambda t: F.pad(t, (0, D - t.shape[-1]))   # a new, dense tensor
-    out = flash_attention(pad(q), pad(k), pad(v), causal=True,
-                          window=window, softcap=softcap, scale=scale)
+    out = _flash(pad(q), pad(k), pad(v), causal=True, window=window,
+                 softcap=softcap, scale=scale)
     return out[..., :dv]
 
 
@@ -298,6 +453,7 @@ def _mla_q(params, att: AttentionConfig, x, pos_q, eps):
     else:
         q = x @ params["wq"]
     q = q.reshape(B, S, att.n_heads, qk_dim)
+    q = shard(q, None, None, "model", None)
     q_nope = q[..., :att.qk_nope_head_dim]
     q_rope = apply_rope(q[..., att.qk_nope_head_dim:], pos_q, att.rope_theta)
     return q_nope, q_rope
@@ -322,6 +478,8 @@ def apply_mla(params, att: AttentionConfig, x, pos_q, *, window, eps,
     if cache is None or S > 1:
         k_nope = (ckv @ params["w_uk"]).reshape(B, S, H, nope)
         v = (ckv @ params["w_uv"]).reshape(B, S, H, vd)
+        k_nope = shard(k_nope, None, None, "model", None)
+        v = shard(v, None, None, "model", None)
         q = torch.cat([q_nope, q_rope], dim=-1)
         # the single rope key head joins every head's k in the copy cat
         # makes (an expanded view would not be contiguous)
@@ -335,10 +493,9 @@ def apply_mla(params, att: AttentionConfig, x, pos_q, *, window, eps,
     else:
         # absorbed decode in float32: scores and values in latent space
         C = cache["ckv"].shape[1]
-        rows = torch.arange(B, device=x.device)
         slot = torch.remainder(cache_pos, C)
-        cache["ckv"][rows, slot] = ckv[:, 0].to(cache["ckv"].dtype)
-        cache["k_rope"][rows, slot] = k_rope[:, 0].to(cache["k_rope"].dtype)
+        write_rows(cache["ckv"], slot, ckv[:, 0])
+        write_rows(cache["k_rope"], slot, k_rope[:, 0])
         ckv_c, kr_c = cache["ckv"].float(), cache["k_rope"].float()
         w_uk = params["w_uk"].reshape(r, H, nope).float()
         q_lat = torch.einsum("bshn,rhn->bshr", q_nope.float(), w_uk)

@@ -12,6 +12,8 @@ from typing import Optional
 
 import torch
 
+from repro_torch.sharding import shard
+
 
 def rms_norm(x, scale, eps: float = 1e-6):
     dtype = x.dtype
@@ -85,4 +87,6 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype):
 def apply_mlp(params, x):
     h = x @ params["w_gate"]
     u = x @ params["w_up"]
-    return (torch.nn.functional.silu(h) * u) @ params["w_down"]
+    h = shard(torch.nn.functional.silu(h) * u, *((None,) * (x.ndim - 1)),
+              "model")
+    return h @ params["w_down"]

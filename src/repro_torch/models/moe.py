@@ -30,6 +30,7 @@ from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import _normal, apply_mlp, dense_init, init_mlp
+from repro_torch.sharding import shard
 
 
 def init_moe(gen: torch.Generator, cfg: ArchConfig, dtype):
@@ -151,6 +152,7 @@ def apply_moe(params, cfg: ArchConfig, x):
     """x: (B, S, d) → (B, S, d), aux (the mean of the rows' load-balance
     losses). Each batch row is its own capacity pool."""
     y, aux = _moe_rows(params, cfg.moe, x)
+    y = shard(y, None, None, None)
     if "shared" in params:
         y = y + apply_mlp(params["shared"], x)
     return y, aux.mean()

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models.layers import _normal, dense_init
 from repro_torch.models.ssm import _causal_conv
+from repro_torch.sharding import shard
 
 _C = 8.0  # Griffin's recurrence-gate temperature
 
@@ -89,7 +90,7 @@ def apply_rglru(params, cfg: ArchConfig, x, cache=None, fresh=False):
     S = x.shape[1]
     # jax.nn.gelu's default is the tanh approximation
     gate = F.gelu(x @ params["w_gate_lru"], approximate="tanh")
-    xb = x @ params["w_x"]
+    xb = shard(x @ params["w_x"], None, None, "model")
     conv_carry = None if cache is None or fresh else cache["conv"]
     xb, new_conv = _causal_conv(xb, params["conv_lru"], conv_carry)
 

@@ -27,6 +27,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels.ssd.ops import ssd
 from repro_torch.models.layers import _normal, dense_init, rms_norm
+from repro_torch.sharding import shard
+from repro_torch.sharding.rules import (contiguous_grad, head_placements,
+                                        is_dtensor, model_size)
 
 
 def check_supported(cfg: ArchConfig):
@@ -88,6 +91,41 @@ def _causal_conv(x, w, carry=None):
     return F.silu(out), xp[:, -(K - 1):]
 
 
+def _ssd(x, dt, A, B, C, chunk, initial_state):
+    """``ssd``; on DTensors (a client's forward on a mesh) on each rank's
+    heads (``_ssd_on_shards``)."""
+    if is_dtensor(x):
+        return _ssd_on_shards(x, dt, A, B, C, chunk, initial_state)
+    return ssd(x, dt, A, B, C, chunk=chunk, initial_state=initial_state)
+
+
+def _ssd_on_shards(x, dt, A, B, C, chunk, initial_state):
+    """The kernel's Function on each rank's heads, through ``local_map``
+    (its saved tensors local): x, dt, A and the states split by heads on
+    ``model`` where H divides, the one B/C group replicated (its gradient
+    a partial sum over the ranks); otherwise every rank scans every
+    head."""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    split = x.shape[2] % model_size(x) == 0
+    xp = head_placements(x, 2, split)
+    ap = head_placements(A, 0, split, batch=False)
+    bp = head_placements(B, 2, False)
+    gbp = head_placements(B, 2, False, Partial() if split else None)
+    sp = head_placements(x, 1, split)
+    ins = (xp, xp, ap, bp, bp, None if initial_state is None else sp)
+    grads = (xp, xp, ap, gbp, gbp, ins[5])
+
+    def fn(x, dt, A, B, C, s0):
+        x, dt, A, B, C, s0 = map(contiguous_grad, (x, dt, A, B, C, s0))
+        return ssd(x, dt, A, B, C, chunk=chunk, initial_state=s0)
+
+    return local_map(fn, out_placements=(xp, sp), in_placements=ins,
+                     in_grad_placements=grads, device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, dt, A, B, C, initial_state)
+
+
 def apply_mamba2(params, cfg: ArchConfig, x, cache=None, fresh=False):
     """x: (B,S,d). cache: None or {"conv": (B,K-1,ch), "state": (B,H,P,N)},
     updated in place; ``fresh``: the caller has just zeroed the cache (a
@@ -98,7 +136,7 @@ def apply_mamba2(params, cfg: ArchConfig, x, cache=None, fresh=False):
     d_inner, n_heads, _, _ = _dims(cfg)
     gN = ssm.n_groups * ssm.d_state
     B_, S, _ = x.shape
-    zxbcdt = x @ params["w_in"]
+    zxbcdt = shard(x @ params["w_in"], None, None, "model")
     z, xs, Bc, Cc, dt = _split_in_proj(cfg, zxbcdt)
 
     conv_in = torch.cat([xs, Bc, Cc], dim=-1)
@@ -117,9 +155,8 @@ def apply_mamba2(params, cfg: ArchConfig, x, cache=None, fresh=False):
         # the JAX model's is
         f32 = lambda t: t.float().contiguous()
         init = None if cache is None or fresh else f32(cache["state"])
-        y, final_state = ssd(f32(xs), dt.contiguous(), A.contiguous(),
-                             f32(Bc), f32(Cc), chunk=ssm.chunk_size,
-                             initial_state=init)
+        y, final_state = _ssd(f32(xs), dt.contiguous(), A.contiguous(),
+                              f32(Bc), f32(Cc), ssm.chunk_size, init)
     else:
         # single-token recurrent decode: state' = exp(dt·A)·state + dt·x Bᵀ
         st = cache["state"].float()                          # (B,H,P,N)

@@ -57,6 +57,8 @@ from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as SSM
 from repro_torch.models.layers import (apply_mlp, dense_init, embed_init,
                                        init_mlp, rms_norm, softcap)
+from repro_torch.sharding import shard
+from repro_torch.sharding.rules import is_dtensor
 from repro_torch.utils.tree import tree_flatten, tree_leaves, tree_map
 
 VOCAB_PAD = 256  # embedding rows padded as in the JAX package
@@ -216,6 +218,9 @@ def _apply_layer(p, cfg: ArchConfig, kind: str, x, pos_q, cache=None,
                  cache_pos=None, fresh=False):
     """Returns (x, aux): aux is the MoE layer's load-balance loss, else
     None."""
+    if cfg.seq_parallel and cache is None:
+        # the residual stream sequence-split over `model` between blocks
+        x = shard(x, None, "model", None)
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "M":
         out, _ = SSM.apply_mamba2(p["mamba"], cfg, h, cache=cache,
@@ -267,8 +272,9 @@ def _logits(params, cfg: ArchConfig, x):
     else:
         logits = x @ params["unembed"]
     if cfg.final_softcap is not None:
-        if logits.requires_grad:
-            # out of place: tanh saves its output for the backward
+        if logits.requires_grad or is_dtensor(logits):
+            # out of place: tanh saves its output for the backward (and a
+            # DTensor may hold partial sums, which no in-place op takes)
             logits = softcap(logits, cfg.final_softcap)
         else:
             # cap * tanh(logits / cap), in place: the prefill logits of a
@@ -276,9 +282,15 @@ def _logits(params, cfg: ArchConfig, x):
             cap = cfg.final_softcap
             logits.div_(cap).tanh_().mul_(cap)
     vp = logits.shape[-1]
-    if vp != cfg.vocab_size:  # mask pad columns out of softmax/argmax
+    if vp != cfg.vocab_size and is_dtensor(logits):
+        # a vocab split over `model` (a DTensor has no slice fill): the
+        # pad columns masked out of place
+        pad = torch.arange(vp, device=logits.device) >= cfg.vocab_size
+        logits = torch.where(pad, torch.full((), -1e30, dtype=logits.dtype,
+                                             device=logits.device), logits)
+    elif vp != cfg.vocab_size:  # mask pad columns out of softmax/argmax
         logits[..., cfg.vocab_size:] = -1e30
-    return logits
+    return shard(logits, None, None, "model")
 
 
 def _embed_tokens(params, cfg: ArchConfig, tokens, frontend=None):
@@ -316,8 +328,17 @@ def init_cache(cfg: ArchConfig, batch: int, max_len: int, dtype=None,
     ``batch`` independent rows on ``device`` (None means CUDA): K/V for an
     attention layer, the conv carry (in ``dtype``) and the float32 state
     for a Mamba2 or an RG-LRU layer."""
+    return _build_cache(cfg, batch, max_len, dtype, resolve_device(device))
+
+
+def init_cache_shape(cfg: ArchConfig, batch: int, max_len: int, dtype=None):
+    """The tree of ``init_cache`` as meta tensors: shapes and types only,
+    nothing allocated."""
+    return _build_cache(cfg, batch, max_len, dtype, torch.device("meta"))
+
+
+def _build_cache(cfg: ArchConfig, batch: int, max_len: int, dtype, dev):
     check_supported(cfg)
-    dev = resolve_device(device)
     dtype = getattr(torch, cfg.dtype) if dtype is None else dtype
 
     def layer(kind):

@@ -11,8 +11,8 @@ batched decode step over every slot per step boundary. Layers:
     prefill/decode interleaving cap, lowest-index slot allocation.
   * ``engine``    — ``ServeEngine``: prefill through the flash-attention
     kernel into a slot's rows of the stacked cache, in place; one decode
-    step for all slots. Checkpoint restore (``from_checkpoint``) and
-    ``profile=`` wait for their slices (ROADMAP queue 1).
+    step for all slots; checkpoint restore (``from_checkpoint``) and a
+    ``profile=`` session, as the JAX package's engine has them.
   * ``ledger``    — per-request latency records (queue wait, TTFT, TPOT,
     e2e) surfaced as spans and ``serve.*`` metrics.
 """

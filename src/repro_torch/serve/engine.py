@@ -52,6 +52,7 @@ from repro_torch.models import transformer as TF
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import series as obs_series
 from repro_torch.obs.trace import CAT_COMPUTE, VIRTUAL
+from repro_torch.launch.mesh import H100_HBM_BW, H100_PEAK_FLOPS_BF16
 from repro_torch.runtime.clock import Clock
 from repro_torch.serve import ledger as serve_ledger
 from repro_torch.serve.ledger import RequestRecord
@@ -62,9 +63,6 @@ from repro_torch.utils.tree import tree_map
 
 log = get_logger("serve")
 
-# NVIDIA H100 SXM data sheet: dense bf16 tensor-core peak and HBM3 rate
-H100_PEAK_FLOPS_BF16 = 989e12
-H100_HBM_BW = 3.35e12
 
 
 @dataclass(frozen=True)

@@ -68,7 +68,9 @@ def test_importing_every_port_module_loads_no_jax():
               "optim.sgd", "checkpoint.ckpt", "core.local_sgd",
               "core.stl_sgd", "core.baselines", "launch.train",
               "launch.serve", "obs.export", "obs.profile", "obs.diff",
-              "obs.slo"):
+              "obs.slo", "sharding.rules", "launch.mesh", "launch.specs",
+              "launch.collectives", "launch.dryrun", "comm.shards",
+              "kernels.trace"):
         assert f"repro_torch.{m}" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
@@ -127,3 +129,34 @@ def test_run_without_device_needs_cuda():
         with pytest.raises(RuntimeError, match="CUDA"):
             call()
     assert simulate.resolve_device("cpu").type == "cpu"
+
+
+def test_mesh_entry_points_need_cuda():
+    """``make_host_mesh`` / ``make_host_pod_mesh`` mean CUDA and refuse
+    without it (before any process group starts) unless asked for the
+    CPU; the mesh route builds on the mesh's device, no other."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the meshes would use it")
+    for call in (lambda: mesh.make_host_mesh(1, 1),
+                 lambda: mesh.make_host_pod_mesh(1, 1, 1),
+                 lambda: mesh.make_host_mesh(1, 1, device="cuda")):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            call()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="process group of 4 ranks"):
+        mesh.make_host_mesh(2, 2, device="cpu")
+    assert not dist.is_initialized()
+    m = mesh.make_host_mesh(1, 1, device="cpu")
+    try:
+        assert m.device_type == "cpu"
+        assert tuple(m.mesh_dim_names) == ("data", "model")
+        # a second call reuses the group; a fake mesh refuses a real one
+        assert mesh.make_host_mesh(1, 1, device="cpu").size() == 1
+        with pytest.raises(RuntimeError, match="real process group"):
+            mesh.make_fake_mesh((2, 2), ("data", "model"))
+    finally:
+        dist.destroy_process_group()

@@ -357,12 +357,25 @@ def test_two_level_needs_a_pod_axis(setup):
 
 
 def test_mesh_functions_name_their_roadmap_item(setup):
-    _, tcfg, _, _ = setup
-    for call in (lambda: TLS.batch_spec(tcfg, "data", False),
-                 lambda: TLS.state_shardings(tcfg, None, None, None),
-                 lambda: TLS.init_state_shape(tcfg, 2)):
-        with pytest.raises(NotImplementedError, match="sharded training"):
-            call()
+    """The mesh functions that raised before the mesh was ported now give
+    the reference's answers (state_shardings on a mesh: the mesh tests)."""
+    jcfg, tcfg, _, _ = setup
+    for ca, extra in (("data", False), (("pod", "data"), False),
+                      ("pod", True), (None, False)):
+        got = TLS.batch_spec(tcfg, ca, extra)
+        want = JLS.batch_spec(jcfg, ca, extra)
+        assert sorted(got) == sorted(want)
+        for k in got:
+            assert tuple(got[k]) == tuple(want[k]), (ca, k)
+    shape = TLS.init_state_shape(tcfg, 2)
+    real = TLS.init_state(0, tcfg, 2, device="cpu")
+    got = tree_flatten_with_path(shape)[0]
+    want = tree_flatten_with_path(real)[0]
+    assert [p for p, _ in got] == [p for p, _ in want]
+    for (p, a), (_, b) in zip(got, want):
+        if isinstance(b, torch.Tensor):
+            assert a.device.type == "meta" and a.shape == b.shape \
+                and a.dtype == b.dtype, p
 
 
 def test_step_refuses_a_state_on_another_device(setup):
