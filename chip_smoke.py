@@ -4959,6 +4959,15 @@ def run_rglru_frontend_phase(torch, floor) -> dict:
 # traced on fake CUDA tensors and on fake CPU ones, the records equal.
 MESH_RUN = {"layers": 2, "clients": 2, "batch": 2, "seq": 1024, "steps": 4,
             "eta": 0.03, "smoke_steps": 4, "dryrun_microbatch": 1}
+# 21a's top-k additions: the round at SMOKE width on the 1x1 mesh, bit-equal
+# to the device route; the selection (comm/reducer.py::top_mask) timed
+# alone on qwen3-14b's embedding leaf at full width, two clients' float32
+# deltas, beside torch.topk, and held to a stable sort on a block with
+# planted ties; launch.train.main with --reducer topk, blocking and
+# streaming, against the same runs through build_train_steps(cfg, dev)
+TOPK_RUN = {"frac": 0.1, "reps": 5, "tie_cols": 2 ** 20,
+            "main": {"clients": 2, "seq": 32, "batch": 1, "T1": 4, "k1": 2,
+                     "stages": 1, "steps": 4}}
 
 
 def mesh_pair(torch, cfg, dev, host_state, batches, eta, mesh, **kw):
@@ -5015,9 +5024,176 @@ def mesh_pair(torch, cfg, dev, host_state, batches, eta, mesh, **kw):
     return out
 
 
+def topk_memory_reckoning(cfg, clients: int) -> dict:
+    """Why 21a's top-k round runs at SMOKE width: the bytes a full-width
+    round would hold (the state's shapes as meta tensors, nothing
+    allocated)."""
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.utils.tree import tree_leaves
+
+    st = LS.init_state_shape(cfg, clients)
+    state = sum(t.numel() * t.element_size()
+                for t in tree_leaves([st["params"], st["opt"]]))
+    per_client = sum(t[0].numel() for t in tree_leaves(st["params"]))
+    embed = st["params"]["embed"].numel() * 4
+    out = {"state_gb": state / 1e9, "ref_gb": per_client * 4 / 1e9,
+           "res_gb": clients * per_client * 4 / 1e9,
+           "embed_delta_gb": embed / 1e9}
+    out["total_gb"] = (out["state_gb"] + out["ref_gb"] + out["res_gb"]
+                       + 3 * out["embed_delta_gb"])
+    return out
+
+
+def run_topk_selection(torch, dev, smi: str) -> dict:
+    """21a: ``top_mask`` on qwen3-14b's embedding leaf at full width, a
+    (2, vocab x width) float32 block of normal draws (its k-th largest is
+    tied: float32 normals of that count repeat), beside ``torch.topk`` on
+    the same block (sorted, its default, and unsorted, the call inside
+    ``top_mask``); every time the median of TOPK_RUN["reps"] calls,
+    CUDA events around each (``call_ms``: host-side work shows as idle
+    time). Then the kept set against a stable sort on a (2, 2^20)
+    block with planted ties."""
+    from repro_torch.comm.reducer import TopKMean, top_mask
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import padded_vocab
+
+    q = TOPK_RUN
+    cfg = get_arch("qwen3-14b")
+    rows = padded_vocab(cfg)   # the embedding leaf's rows
+    cols = rows * cfg.d_model
+    k = TopKMean(frac=q["frac"])._k(cols)
+    g = torch.Generator(device=dev).manual_seed(0)
+    y = torch.randn((2, cols), generator=g, device=dev)
+    keep = top_mask(torch.abs(y), k)
+    kept = keep.sum(dim=1)
+    a = torch.abs(y)
+    lo = torch.where(keep, a, float("inf")).amin(dim=1)
+    hi = torch.where(keep, -1.0, a).amax(dim=1)
+    t = torch.topk(a, k, dim=1, sorted=False).values.amin(dim=1)
+    ties = (a == t[:, None]).sum(dim=1)
+    # of the elements tied at the k-th largest, the lower indices win: the
+    # kept ones are a prefix of each row's tied positions
+    prefix = []
+    for r in range(2):
+        tied_kept = keep[r, (a[r] == t[r]).nonzero()[:, 0]]
+        prefix.append(bool(tied_kept[:int(tied_kept.sum())].all()))
+    del keep, a
+    if not (kept == k).all() or not (lo >= hi).all() or not all(prefix):
+        raise AssertionError(f"21a top-k selection: kept {kept.tolist()} "
+                             f"of k {k}, smallest kept {lo.tolist()}, "
+                             f"largest dropped {hi.tolist()}, the kept ties "
+                             f"a prefix of the row's {prefix}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = {"top_mask": call_ms(torch, lambda: top_mask(torch.abs(y), k),
+                              q["reps"])}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    ms["torch.topk sorted"] = call_ms(
+        torch, lambda: torch.topk(torch.abs(y), k, dim=1), q["reps"])
+    ms["torch.topk unsorted"] = call_ms(
+        torch, lambda: torch.topk(torch.abs(y), k, dim=1, sorted=False),
+        q["reps"])
+    log(f"[mesh] 21a top-k selection, qwen3-14b's embedding leaf at full "
+        f"width: a (2, {cols}) float32 block ({rows} x "
+        f"{cfg.d_model}), k {k} a row, {ties.tolist()} elements a row equal "
+        f"to the k-th largest; median ms of {q['reps']} calls: "
+        + ", ".join(f"{n} {v:.2f}" for n, v in ms.items())
+        + f"; top_mask's peak {peak:.2f} GB with the block; {smi}")
+    del y
+    torch.cuda.empty_cache()
+
+    # planted ties: nine values, most magnitudes tied at the cut
+    g = torch.Generator(device=dev).manual_seed(1)
+    y = (torch.randint(-4, 5, (2, q["tie_cols"]), generator=g, device=dev)
+         / 4).to(torch.float32)
+    kt = TopKMean(frac=q["frac"])._k(q["tie_cols"])
+    keep = top_mask(torch.abs(y), kt)
+    order = torch.sort(torch.abs(y), dim=1, descending=True,
+                       stable=True).indices[:, :kt]
+    want = torch.zeros_like(keep).scatter_(1, order, True)
+    same = bool(torch.equal(keep, want))
+    log(f"[mesh] 21a top-k on a (2, {q['tie_cols']}) block with planted "
+        f"ties (k {kt}): the kept indices {'equal' if same else 'DIFFER from'}"
+        f" a stable sort's first k")
+    if not same:
+        raise AssertionError("21a top-k: the kept indices differ from a "
+                             "stable sort's")
+    return {"shape": [2, cols], "k": k, "ties_at_kth": ties.tolist(),
+            "median_ms": ms, "top_mask_peak_gb": peak,
+            "tie_block": [2, q["tie_cols"]], "tie_k": kt,
+            "stable_sort_equal": same, "card": smi}
+
+
+def run_topk_launcher(torch, dev) -> dict:
+    """21a: ``launch.train.main`` with ``--reducer topk`` and with
+    ``--topology streaming --reducer topk`` on the card (its 1x1 mesh),
+    each against the same run through ``build_train_steps(cfg, dev)``:
+    the same stages, rounds, ledger and losses, and the same final state
+    bit for bit."""
+    from repro_torch import kernels
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.core import local_sgd as LS
+    from repro_torch.core.stl_sgd import StagewiseDriver
+    from repro_torch.launch import train as TT
+    from repro_torch.launch.train import synthetic_batches
+    from repro_torch.utils.tree import tree_flatten_with_path
+
+    q = TOPK_RUN["main"]
+    argv = ["--arch", "qwen3-14b", "--smoke", "--reducer", "topk"]
+    for name, v in q.items():
+        argv += [f"--{name}", str(v)]
+    cfg = get_arch("qwen3-14b", smoke=True)
+    out, launches = {}, {}
+    for topo in ("star", "streaming"):
+        kernels.reset_launch_counts()
+        got = TT.main(argv + ["--topology", topo])
+        for kname, v in kernels.launch_counts().items():
+            launches[kname] = launches.get(kname, 0) + v
+        tcfg = TrainConfig(algo="stl_sc", eta1=0.05, k1=q["k1"], T1=q["T1"],
+                           n_stages=q["stages"], seed=0, reducer="topk",
+                           topology=topo)
+        state = LS.init_state(0, cfg, q["clients"], device=dev)
+        train, sync, _ = LS.build_train_steps(cfg, dev, reducer="topk",
+                                              streaming=topo == "streaming")
+        batches = synthetic_batches(cfg, q["clients"], q["batch"], q["seq"],
+                                    0, device=dev)
+        want = StagewiseDriver(tcfg, train, sync).run(
+            state, batches, max_iters=q["steps"])
+        rows = [[(r.stage, r.k, r.iters, r.rounds) for r in ds.results]
+                for ds in (got, want)]
+        ledger = [ds.comm_bytes_total for ds in (got, want)]
+        losses = [[r.mean_loss for r in ds.results] for ds in (got, want)]
+        # the 1x1 mesh is bit-equal to the device route: params, moments,
+        # and the reducer's ref and residuals
+        final = [tree_flatten_with_path(LS.gather_state(ds.state))[0]
+                 for ds in (got, want)]
+        diff = (["structure"] if [p for p, _ in final[0]]
+                != [p for p, _ in final[1]] else
+                [p for (p, a), (_, b) in zip(*final)
+                 if torch.is_tensor(a) and not torch.equal(a, b)])
+        log(f"[mesh] 21a launch.train.main --reducer topk --topology {topo}"
+            f": stages {rows[0]}, ledger {ledger[0]} B, losses {losses[0]};"
+            f" through build_train_steps(cfg, dev): stages {rows[1]}, "
+            f"ledger {ledger[1]} B, losses {losses[1]}; final states "
+            + ("bit-equal" if not diff else f"DIFFER at {diff}"))
+        if (rows[0] != rows[1] or ledger[0] != ledger[1]
+                or losses[0] != losses[1] or diff
+                or not all(math.isfinite(v) for v in losses[0])):
+            raise AssertionError(f"21a launcher {topo}: {rows} {ledger} "
+                                 f"{losses} {diff}")
+        out[topo] = {"stages": rows[0], "ledger": ledger[0],
+                     "losses": losses[0], "final_state_bit_equal": True}
+        del got, want, state
+        torch.cuda.empty_cache()
+    out["launches"] = launches
+    return out
+
+
 def run_mesh_phase(torch, dev="cuda:0") -> dict:
     """Phase 21: 21a the 1x1 mesh route against the device route at full
-    width (dense) and at SMOKE width (int8); 21b the dry run."""
+    width (dense) and at SMOKE width (int8, top-k), the top-k selection
+    at full width and the launcher's top-k runs; 21b the dry run."""
     import itertools
 
     import torch.distributed as dist
@@ -5112,9 +5288,58 @@ def run_mesh_phase(torch, dev="cuda:0") -> dict:
         out["launches"] = {k: launches[k] + spair["mesh"]["launches"][k]
                            for k in launches}
         del spair
+
+        # the top-k round at SMOKE width: the full width does not fit
+        t_topk = time.monotonic()
+        smi = nvidia_smi_line()
+        mem = topk_memory_reckoning(cfg, q["clients"])
+        log(f"[cut] phase 21a top-k round at SMOKE width: at full width "
+            f"({cfg.n_layers} layers) two clients' state is "
+            f"{mem['state_gb']:.1f} GB, the round's float32 ref "
+            f"{mem['ref_gb']:.1f} GB and residuals {mem['res_gb']:.1f} GB, "
+            f"and the embedding leaf's float32 delta "
+            f"({mem['embed_delta_gb']:.1f} GB) is held as y, |y| and deq: "
+            f"{mem['total_gb']:.1f} GB before the step's own buffers, on a "
+            f"card of 80 GB")
+        sstate = LS.init_state(0, scfg, LM_CHECK["clients"], device="cpu")
+        tpair = mesh_pair(torch, scfg, dev, sstate, sb, LM_CHECK["eta1"],
+                          mesh, reducer="topk", rng=TorchKey(0, dev))
+        tdiff = tpair.pop("diff")
+        twant = dict(swant, quantize_kernel=0, dequant_mean_kernel=0)
+        log(f"[mesh] 21a qwen3 SMOKE top-k round, 1x1 mesh: "
+            f"{'bit-equal' if not tdiff else 'DIFFER'} to the device route "
+            f"(params, moments, ref, residuals); round "
+            f"{tpair['device']['sync_ms']:.2f} / "
+            f"{tpair['mesh']['sync_ms']:.2f} ms (device / mesh); mesh "
+            f"launches {tpair['mesh']['launches']}; {smi}")
+        if tdiff:
+            raise AssertionError(f"phase 21a top-k: the mesh route differs "
+                                 f"at {tdiff[:5]}")
+        expect_launches("phase 21a top-k mesh", tpair["mesh"]["launches"],
+                        twant)
+        out["smoke_topk"] = {"bit_equal": True, "memory": mem,
+                             "sync_ms": {r: tpair[r]["sync_ms"]
+                                         for r in ("device", "mesh")},
+                             "launches": tpair["mesh"]["launches"]}
+        for k in out["launches"]:
+            out["launches"][k] += tpair["mesh"]["launches"][k]
+        del tpair
+        torch.cuda.empty_cache()
+        out["topk_selection"] = run_topk_selection(torch, dev, smi)
     finally:
         dist.destroy_process_group()
     torch.cuda.empty_cache()
+    # the launcher starts and ends its own world-1 group
+    launcher = run_topk_launcher(torch, dev)
+    for k in out["launches"]:
+        out["launches"][k] += launcher["launches"].get(k, 0)
+    out["topk_launcher"] = launcher
+    log("[mesh] 21a the two-level round with a compressed intra hop "
+        "(int8 or top-k) is not run here: its pod axis needs 2 ranks and "
+        "this run has one card; the 4-process gloo cases of "
+        "tests/test_torch_mesh.py hold it to the reference")
+    log(f"[time] phase 21a top-k additions: "
+        f"{time.monotonic() - t_topk:.1f} s")
 
     # 21b: the dry run on the fake (16, 16) mesh, traced on fake CUDA
     # tensors and again on fake CPU ones (a build without CUDA traces

@@ -14,7 +14,8 @@ Reducers are functions of (stacked replicas, state, rng) on dict/list
 trees of tensors; the state keeps one tree structure across calls. On a
 device mesh they take each leaf's ``comm.shards.LeafShards`` and run on
 the rank's block of it: the dense mean all-reduced over the client axes,
-int8 codes and scales all-gathered over them (``shards=``).
+int8 codes and scales all-gathered over them, a top-k round's candidates
+all-gathered over the mesh dims that split the leaf (``shards=``).
 ``rng`` is a key (``utils.rng``): the reducer folds the leaf index into
 it and draws the leaf's stochastic-rounding bits from the result, as the
 JAX package folds ``fold_in(rng, i)``.
@@ -25,7 +26,8 @@ Implementations
                   quantization per (client, leaf), through the Hopper
                   quantize / dequant_mean kernels on CUDA tensors and their
                   plain versions on CPU tensors.
-  TopKMean      — magnitude top-k delta sparsification per (client, leaf).
+  TopKMean      — magnitude top-k delta sparsification per (client, leaf),
+                  ties to the lower flat index (``top_mask``).
   StalenessWeightedMean — merge-on-arrival for asynchronous rounds
                   (``runtime``): one client's message at a time, dense or
                   int<b> (the quantize kernels on a one-row block per leaf).
@@ -35,6 +37,7 @@ client sends per round — the quantity comm.cost prices.
 """
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -260,16 +263,18 @@ class TopKMean(_DeltaReducer):
         return max(1, min(size, int(round(self.frac * size))))
 
     def _compress(self, y, rng, shards=None):
-        if shards is not None:
-            raise NotImplementedError("top-k rounds on a device mesh are "
-                                      "not ported (ROADMAP queue 1: "
-                                      "sharded training)")
-        n = y.shape[0]
-        k = self._k(y.shape[1])
-        idx = torch.topk(torch.abs(y), k, dim=1).indices
-        vals = torch.gather(y, 1, idx)
-        deq = torch.zeros_like(y).scatter_(1, idx, vals)
-        return deq, torch.sum(deq, dim=0) * (1.0 / n)
+        """On a mesh the k is the whole leaf's and so is the selection
+        (``top_mask``); ``mean`` is the float32 sum over all clients
+        all-reduced over the client axes, times 1/N, as the reference
+        writes it."""
+        if shards is None:
+            keep = top_mask(torch.abs(y), self._k(y.shape[1]))
+            deq = torch.where(keep, y, 0.0)
+            return deq, torch.sum(deq, dim=0) * (1.0 / y.shape[0])
+        size = math.prod(shards.shape[1:])
+        keep = top_mask(torch.abs(y), self._k(size), shards)
+        deq = torch.where(keep, y, 0.0)
+        return deq, shards.clients.sum(deq) * (1.0 / shards.clients.n_clients)
 
     def leaf_message_bytes(self, template) -> list:
         # (f32 value + i32 index) per kept entry
@@ -368,6 +373,66 @@ class StalenessWeightedMean(_DeltaReducer):
             return [leaf_elems(l) * 4 for l in tree_leaves(template)]
         return [-(-leaf_elems(l) * self.bits // 8) + 4
                 for l in tree_leaves(template)]
+
+
+def top_mask(a, k: int, shards=None):
+    """Each row's k largest of the (n, M) magnitudes ``a``, as a bool mask,
+    the lower flat index first among equal magnitudes (``jax.lax.top_k``'s
+    rule).
+
+    The row's k-th largest t is found once (``torch.topk``, unsorted);
+    every element above t is kept, and of the elements equal to t the
+    first ``need`` in row order (``_first_ties``): k less those above t
+    on one device.
+
+    On a mesh (``shards``, a leaf split over ``shards.split_axes``) the
+    rank's block holds part of each row. Each rank offers its own
+    min(k, M_local) best, by the same rule, as candidates: their
+    magnitudes and flat indices in the leaf, padded to k with -1 and
+    all-gathered over the split axes. The leaf's k best are among them
+    (a rank's winners are a prefix of its own order). t and the flat index
+    of the last tied winner come from the candidates, and the rank keeps
+    its own tied candidates up to that index. A leaf that is not split
+    takes the one-device code.
+    """
+    if shards is None or not shards.split_axes:
+        t = _kth(a, k)
+        above = a > t
+        return _first_ties(above, a == t,
+                           k - above.sum(dim=1, keepdim=True))
+    n, kl = a.shape[0], min(k, a.shape[1])
+    pos = top_mask(a, kl).nonzero()[:, 1].view(n, kl)   # row order
+    vals = torch.gather(a, 1, pos)
+    idx = shards.flat_index(pos)
+    if kl < k:
+        vals = torch.cat([vals, vals.new_full((n, k - kl), -1.0)], dim=1)
+        idx = torch.cat([idx, idx.new_full((n, k - kl), -1)], dim=1)
+    all_vals, all_idx = shards.gather_split(vals), shards.gather_split(idx)
+    t = _kth(all_vals, k)
+    need = k - (all_vals > t).sum(dim=1, keepdim=True)
+    tied = torch.where(all_vals == t, all_idx, torch.iinfo(torch.int64).max)
+    last = torch.sort(tied, dim=1).values.gather(1, need - 1)
+    return _first_ties(a > t, a == t, ((vals == t) & (idx <= last)).sum(
+        dim=1, keepdim=True))
+
+
+def _kth(a, k: int):
+    """Each row's k-th largest, as an (n, 1) column."""
+    return torch.topk(a, k, dim=1, sorted=False).values.amin(dim=1,
+                                                             keepdim=True)
+
+
+def _first_ties(above, tied, need):
+    """The mask ``above`` and of each row's first ``need`` elements of
+    ``tied``, in row order."""
+    # one scan a row: a row alone takes the device's one-dim scan, a batch
+    # of few long rows scans each row with one thread block (two rows of
+    # qwen3-14b's embedding leaf on an H100: 10.4 ms a row at a time,
+    # 1,178 ms batched)
+    rank = torch.empty(tied.shape, dtype=torch.int32, device=tied.device)
+    for r in range(tied.shape[0]):
+        torch.cumsum(tied[r], dim=0, dtype=torch.int32, out=rank[r])
+    return above | (tied & (rank <= need))
 
 
 def supports_leaf_bytes(reducer: Reducer) -> bool:

@@ -19,7 +19,11 @@ take a ``LeafShards`` per leaf and run their round on the rank's block:
     all-reduced (MAX) over the mesh dims that split the leaf's other dims;
   * ``local_bits`` — a key's bits are drawn for the whole (C, M) leaf,
     as on one device, and the rank keeps its own elements in the leaf's
-    shape, so its codes equal the single-device codes exactly.
+    shape, so its codes equal the single-device codes exactly;
+  * ``gather_split`` / ``flat_index`` — a top-k round's candidates
+    (magnitudes and their flat indices in the leaf) all-gathered over the
+    mesh dims that split the leaf, and ``ClientGroup.sum`` its float32
+    sum of the messages over the client axes.
 
 Every collective is a functional collective (``_c10d_functional``), so
 the dry run's dispatch mode (``launch/collectives.py``) sees it.
@@ -84,12 +88,18 @@ class ClientGroup:
         divided by C and rounded once to x's type."""
         if self.group is None:
             return torch.mean(x, dim=0)
+        return (self.sum(x) / self.n_clients).to(x.dtype)
+
+    def sum(self, x):
+        """The float32 sum over all clients of a (C_local, ...) block: the
+        block's sum all-reduced over the group (a top-k round's
+        ``sum(deq) * (1/n)``)."""
+        part = torch.sum(x.to(torch.float32), dim=0)
+        if self.group is None:
+            return part
         from torch.distributed import _functional_collectives as funcol
 
-        part = torch.sum(x.to(torch.float32), dim=0)
-        total = funcol.wait_tensor(funcol.all_reduce(part, "sum",
-                                                     self.group))
-        return (total / self.n_clients).to(x.dtype)
+        return funcol.wait_tensor(funcol.all_reduce(part, "sum", self.group))
 
     def sum_scalar(self, t):
         """A scalar's sum over the group (the loss metric)."""
@@ -103,11 +113,16 @@ class ClientGroup:
         """(C_local, ...) blocks → (C, ...) in client order."""
         if self.group is None:
             return x
-        from torch.distributed import _functional_collectives as funcol
+        return _all_gather(x, self.group)
 
-        gather = (getattr(funcol, "all_gather_single", None)
-                  or funcol.all_gather_tensor)   # the name before 2.12
-        return funcol.wait_tensor(gather(x.contiguous(), 0, self.group))
+
+def _all_gather(x, group):
+    """The group's blocks of ``x`` stacked on dim 0, in group order."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = (getattr(funcol, "all_gather_single", None)
+              or funcol.all_gather_tensor)   # the name before 2.12
+    return funcol.wait_tensor(gather(x.contiguous(), 0, group))
 
 
 class LeafShards:
@@ -120,10 +135,13 @@ class LeafShards:
         self.clients = clients
         self.shape = tuple(shape)
         self.placements = tuple(placements)
-        names = clients.mesh.mesh_dim_names
+        sizes = _sizes(clients.mesh)
+        # the mesh dims of more than one rank that split a dim past the
+        # client dim
         self.split_axes = tuple(
-            n for n, p in zip(names, self.placements)
-            if isinstance(p, Shard) and p.dim % len(self.shape) != 0)
+            n for n, p in zip(clients.mesh.mesh_dim_names, self.placements)
+            if isinstance(p, Shard) and p.dim % len(self.shape) != 0
+            and sizes[n] > 1)
 
     def replica_max(self, t):
         """Max over the ranks that hold other parts of the same clients'
@@ -135,15 +153,41 @@ class LeafShards:
         group = axes_group(self.clients.mesh, self.split_axes)
         return funcol.wait_tensor(funcol.all_reduce(t, "max", group))
 
+    def gather_split(self, x):
+        """(C_local, K) rows of this rank → (C_local, R·K): the same
+        clients' rows of every rank that holds another part of their leaf
+        (R ranks over ``split_axes``), side by side."""
+        group = axes_group(self.clients.mesh, self.split_axes)
+        parts = _all_gather(x, group)
+        return (parts.reshape((-1,) + tuple(x.shape)).transpose(0, 1)
+                .reshape(x.shape[0], -1))
+
+    def _block(self):
+        """This rank's block of the leaf: (local shape, global offset)."""
+        from repro_torch.sharding.rules import local_shape_and_offset
+
+        return local_shape_and_offset(self.shape, self.clients.mesh,
+                                      self.placements)
+
+    def flat_index(self, pos):
+        """Positions in this rank's block of one client's row (int64,
+        row-major over the block) → their flat indices in the whole row of
+        the leaf. The block is a box of the leaf, so the map keeps order."""
+        lshape, off = self._block()
+        out = torch.zeros_like(pos)
+        rest, stride = pos, 1
+        for d in reversed(range(1, len(self.shape))):
+            out += (rest % lshape[d] + off[d]) * stride
+            rest = rest // lshape[d]
+            stride *= self.shape[d]
+        return out
+
     def local_bits(self, rng):
         """The key's bits for the whole (C, M) leaf, this rank's elements,
         as (C_local, M_local) int32."""
-        from repro_torch.sharding.rules import local_shape_and_offset
-
         n = self.shape[0]
         bits = rng.bits((n, math.prod(self.shape[1:]))).reshape(self.shape)
-        lshape, off = local_shape_and_offset(self.shape, self.clients.mesh,
-                                             self.placements)
+        lshape, off = self._block()
         for d, (ln, o) in enumerate(zip(lshape, off)):
             if ln != self.shape[d]:
                 bits = bits.narrow(d, o, ln)

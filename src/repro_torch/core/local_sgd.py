@@ -62,7 +62,7 @@ from repro_torch.optim import make_optimizer
 from repro_torch.sharding.rules import (NamedSharding, P, axis_sizes,
                                         distribute, feasible_specs,
                                         from_local, is_dtensor, mesh_context,
-                                        param_specs, submesh)
+                                        param_specs, place, submesh)
 from repro_torch.utils.rng import TorchKey
 from repro_torch.utils.tree import (tree_broadcast_leading, tree_flatten,
                                     tree_leaves, tree_map, tree_mean_leading)
@@ -156,17 +156,28 @@ def _mesh_shards(tree, mesh, client_axes):
     return treedef.unflatten([_local(x) for x in leaves]), shards
 
 
-def _wrap_delta_state(st, shards, mesh):
+def _ref_layouts(shards, refs=None):
+    """(placements, global shape) of a compressed reducer's ``ref``, a leaf
+    at a time: a row of its leaf; with ``refs`` (one ``LeafShards`` a
+    leaf, the leaf seen over ``pod``), a two-level round's intra state,
+    the (n_pods, ...) stack of the pods' refs placed as ``refs`` say."""
+    if refs is None:
+        return [(row_placements(sh.placements, len(sh.shape)), sh.shape[1:])
+                for sh in shards]
+    return [(sh.placements, sh.shape) for sh in refs]
+
+
+def _wrap_delta_state(st, shards, mesh, refs=None):
     """A compressed reducer's state on this rank's blocks → DTensors:
-    ``ref`` placed as a row of its leaf, ``res`` as the leaf."""
+    ``ref`` as ``_ref_layouts`` says (with ``refs``, this rank's block is
+    its pod's row of the stack), ``res`` as the leaf."""
     if st is None:
         return None
-    refs, treedef = tree_flatten(st["ref"])
+    ref, treedef = tree_flatten(st["ref"])
     res = treedef.flatten_up_to(st["res"])
-    return {"ref": treedef.unflatten([
-                from_local(r, mesh, row_placements(sh.placements,
-                                                   len(sh.shape)),
-                           sh.shape[1:]) for r, sh in zip(refs, shards)]),
+    ref = [from_local(r if refs is None else r[None], mesh, pl, shape)
+           for r, (pl, shape) in zip(ref, _ref_layouts(shards, refs))]
+    return {"ref": treedef.unflatten(ref),
             "res": treedef.unflatten([
                 from_local(e, mesh, sh.placements, sh.shape)
                 for e, sh in zip(res, shards)])}
@@ -174,6 +185,15 @@ def _wrap_delta_state(st, shards, mesh):
 
 def _local_comm(comm):
     return tree_map(_local, comm) if comm is not None else None
+
+
+def _local_intra(intra):
+    """A two-level round's intra state on the mesh → this rank's pod's
+    state on its blocks (a dense hop's ``(None,) * n_pods`` as it is)."""
+    if not isinstance(intra, dict):
+        return intra
+    return {"ref": tree_map(lambda r: _local(r)[0], intra["ref"]),
+            "res": tree_map(_local, intra["res"])}
 
 
 # ---------------------------------------------------------------------------
@@ -205,11 +225,16 @@ def _build_mesh_sync_step(reducer, mesh, client_axis, base_seed: int,
                                  f"{topo.n_pods} pods")
             comm = state.get("comm")
             comm = (topo.init_state(params, shards) if comm is None
-                    else {"intra": comm["intra"],
+                    else {"intra": _local_intra(comm["intra"]),
                           "inter": _local_comm(comm["inter"])})
             consensus, comm = topo.reduce(params, comm, key, shards)
             pods = [over(sh, ("pod",), topo.n_pods) for sh in shards]
-            extra = {"comm": {"intra": comm["intra"],
+            intra = comm["intra"]
+            if isinstance(intra, dict):
+                # the pods' refs stacked and split over `pod`, the
+                # residuals placed as the params
+                intra = _wrap_delta_state(intra, shards, mesh, refs=pods)
+            extra = {"comm": {"intra": intra,
                               "inter": _wrap_delta_state(comm["inter"],
                                                          pods, mesh)}}
         else:
@@ -699,28 +724,77 @@ def state_shardings(cfg: ArchConfig, mesh, params_shape, opt_shape,
 
 def place_state(state, mesh, client_axis="data", shardings=None):
     """A state of whole tensors (``init_state``, a converted reference
-    state) → DTensors on ``mesh`` placed by ``state_shardings`` (or the
-    ``shardings`` given): each rank keeps its own block, the same tensors'
-    slices on every rank, no communication (a one-rank mesh keeps the
-    tensors themselves). A ``comm`` key is not placed: the first round
-    makes it on the mesh."""
+    state, ``gather_state``'s) → DTensors on ``mesh`` placed by
+    ``state_shardings`` (or the ``shardings`` given): each rank keeps its
+    own block, the same tensors' slices on every rank, no communication
+    (a one-rank mesh keeps the tensors themselves). A compressed round's
+    ``comm`` state is placed as the mesh round keeps it."""
     if shardings is None:
         shardings = state_shardings(None, mesh, state["params"],
                                     state["opt"], client_axis)
 
-    out = {k: v for k, v in state.items() if k != "comm"}
+    out = dict(state)
     out["params"] = distribute(state["params"], shardings["params"])
     out["opt"] = distribute(state["opt"], shardings["opt"])
+    if state.get("comm") is not None:
+        out["comm"] = _place_comm(state["comm"], out["params"], mesh,
+                                  client_axis)
     return out
+
+
+def _place_comm(comm, params, mesh, client_axis):
+    """A compressed round's state of whole tensors, in the device route's
+    layout → DTensors as the mesh round keeps them: a reducer's ``ref`` a
+    row of its leaf, ``res`` as the leaf; a two-level round's inter state
+    over ``pod`` and its intra state, one tree a pod, as the (n_pods, ...)
+    stack of the pods' refs split over ``pod`` and the pods' residuals
+    concatenated, placed as the params."""
+    _, shards = _mesh_shards(params, mesh, _axes_tuple(client_axis))
+    treedef = tree_flatten(params)[1]
+
+    def put(st, res_shards, refs=None):
+        if st is None:
+            return None
+        ref = treedef.flatten_up_to(st["ref"])
+        res = treedef.flatten_up_to(st["res"])
+        layouts = _ref_layouts(res_shards, refs)
+        return {"ref": treedef.unflatten([place(r, mesh, pl) for r, (pl, _)
+                                          in zip(ref, layouts)]),
+                "res": treedef.unflatten([place(e, mesh, sh.placements)
+                                          for e, sh in zip(res, res_shards)])}
+
+    if "intra" not in comm:
+        return put(comm, shards)
+    n_pods = len(comm["intra"])
+    pods = [over(sh, ("pod",), n_pods) for sh in shards]
+    intra = comm["intra"]
+    if any(st is not None for st in intra):
+        intra = put({"ref": tree_map(lambda *r: torch.stack(r),
+                                     *[st["ref"] for st in intra]),
+                     "res": tree_map(lambda *e: torch.cat(e),
+                                     *[st["res"] for st in intra])},
+                    shards, refs=pods)
+    return {"intra": intra, "inter": put(comm["inter"], pods)}
 
 
 def gather_state(state):
     """The whole tensors of a placed state (``full_tensor`` of every
     DTensor leaf, a collective on every rank; on a one-rank mesh the local
-    tensors themselves)."""
+    tensors themselves), in the device route's layout: a two-level
+    round's intra state one tree a pod."""
     def whole(x):
         if not is_dtensor(x):
             return x
         return x.to_local() if x.device_mesh.size() == 1 else x.full_tensor()
 
-    return tree_map(whole, state)
+    out = tree_map(whole, state)
+    intra = (out.get("comm") or {}).get("intra")
+    if isinstance(intra, dict):
+        # the (n_pods, ...) refs and the (n, ...) residuals, pod by pod
+        n_pods = tree_leaves(intra["ref"])[0].shape[0]
+        m = tree_leaves(intra["res"])[0].shape[0] // n_pods
+        out["comm"] = dict(out["comm"], intra=tuple(
+            {"ref": tree_map(lambda r: r[p], intra["ref"]),
+             "res": tree_map(lambda e: e[p * m:(p + 1) * m], intra["res"])}
+            for p in range(n_pods)))
+    return out

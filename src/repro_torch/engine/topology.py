@@ -29,6 +29,7 @@ from repro_torch.comm.cost import (NetworkModel, dense_bytes, link_model,
                                    round_time)
 from repro_torch.comm.reducer import (DenseMean, Reducer, get_reducer,
                                       reduce_streaming, supports_leaf_bytes)
+from repro_torch.comm.shards import over
 from repro_torch.utils.tree import (tree_flatten, tree_flatten_with_path,
                                     tree_leaves, tree_map)
 
@@ -229,10 +230,11 @@ class Hierarchical(Topology):
     writing the consensus back into the replicas leaves the state intact.
 
     On a device mesh (``shards=``, one ``comm.shards.LeafShards`` per leaf
-    over the (pod, data) client grid) the intra hop is a dense all-reduce
-    over ``data`` and the inter hop the inter reducer's round over
-    ``pod``, each rank holding its pod's mean; a compressed intra hop is
-    not ported to the mesh.
+    over the (pod, data) client grid) the intra hop is the intra reducer's
+    round over ``data`` (a dense all-reduce, or a compressed round on the
+    rank's pod's clients, its state the rank's own pod's) and the inter
+    hop the inter reducer's round over ``pod``, each rank holding its
+    pod's mean.
     """
 
     n_pods: int = 2
@@ -273,16 +275,15 @@ class Hierarchical(Topology):
 
     def init_state(self, stacked, shards=None):
         if shards is not None:
-            from repro_torch.comm.shards import over
-
             n = shards[0].shape[0]
             self._check_pods(n)
-            self._mesh_intra()
             P = self.n_pods
             leaves, treedef = tree_flatten(stacked)
-            means = [over(sh, ("data",), n // P).clients.mean(x)[None]
-                     for x, sh in zip(leaves, shards)]
-            return {"intra": (None,) * P,
+            pods = self._mesh_pods(shards)
+            means = [sh.clients.mean(x)[None] for x, sh in zip(leaves, pods)]
+            intra = ((None,) * P if type(self.intra) is DenseMean
+                     else self.intra.init_state(stacked, pods))
+            return {"intra": intra,
                     "inter": self.inter.init_state(
                         treedef.unflatten(means),
                         [over(sh, ("pod",), P) for sh in shards])}
@@ -292,38 +293,44 @@ class Hierarchical(Topology):
                 "inter": self.inter.init_state(
                     tree_map(self._pod_mean, stacked))}
 
-    def _mesh_intra(self):
-        if type(self.intra) is not DenseMean:
-            raise NotImplementedError(
-                f"a {self.intra.name} intra-pod hop on a device mesh is not "
-                f"ported (ROADMAP queue 1: sharded training); the mesh "
-                f"runs a dense one")
+    def _mesh_pods(self, shards):
+        """Each leaf seen as its pod's m = n / n_pods clients over
+        ``data`` (the intra hop's ``LeafShards``)."""
+        n = shards[0].shape[0]
+        return [over(sh, ("data",), n // self.n_pods) for sh in shards]
 
     def _reduce_on_mesh(self, stacked, state, rng, shards):
-        """Each rank's block: its pod's mean over ``data``, then the
-        inter reducer over ``pod`` (per leaf, in reverse-layer order when
-        streaming: the same numbers)."""
-        from repro_torch.comm.shards import over
-
+        """Each rank's block: the intra hop over ``data`` (its pod's
+        clients), then the inter reducer over ``pod`` (per leaf, in
+        reverse-layer order when streaming: the same numbers). A
+        compressed intra hop's state is the rank's own pod's, its key
+        ``rng.fold_in(pod)``, as pod p folds it on one device."""
         if self.all_dense:
             return DenseMean().reduce(stacked, state, rng, shards)
-        self._mesh_intra()
         P = self.n_pods
-        n = shards[0].shape[0]
-        self._check_pods(n)
+        self._check_pods(shards[0].shape[0])
         leaves, treedef = tree_flatten(stacked)
+        pods = self._mesh_pods(shards)
+        dense_intra = type(self.intra) is DenseMean
+        if not dense_intra:
+            intra_states = self.intra.split_state(state["intra"], treedef)
+            pod_key = rng.fold_in(shards[0].clients.mesh.get_local_rank("pod"))
         inter_states = self.inter.split_state(state["inter"], treedef)
         key = rng.fold_in(P)
         out = [None] * len(leaves)
         order = range(len(leaves))
         for i in (reversed(order) if self.streaming else order):
-            sh = shards[i]
-            pod_mean = over(sh, ("data",), n // P).clients.mean(leaves[i])
+            if dense_intra:
+                pod_mean = pods[i].clients.mean(leaves[i])
+            else:
+                pod_mean, intra_states[i] = self.intra.reduce_leaf(
+                    leaves[i], intra_states[i], pod_key.fold_in(i), pods[i])
             out[i], inter_states[i] = self.inter.reduce_leaf(
                 pod_mean[None], inter_states[i], key.fold_in(i),
-                over(sh, ("pod",), P))
+                over(shards[i], ("pod",), P))
         return treedef.unflatten(out), {
-            "intra": state["intra"],
+            "intra": (state["intra"] if dense_intra else
+                      self.intra.join_state(intra_states, treedef)),
             "inter": self.inter.join_state(inter_states, treedef)}
 
     def reduce(self, stacked, state, rng, shards=None):

@@ -141,22 +141,30 @@ def distribute(tree, shardings):
     through."""
     import torch
 
-    def place(x, sh):
+    def one(x, sh):
         if not isinstance(x, torch.Tensor):
             return x
-        pl = sh.placements
-        lshape, off = local_shape_and_offset(x.shape, sh.mesh, pl)
-        local = x
-        for d, (ln, o) in enumerate(zip(lshape, off)):
-            if ln != x.shape[d]:
-                local = local.narrow(d, o, ln)
-        if local is not x:
-            # a copy: a slice (even a contiguous one) would keep the whole
-            # tensor's storage alive
-            local = local.clone(memory_format=torch.contiguous_format)
-        return from_local(local, sh.mesh, pl, x.shape)
+        return place(x, sh.mesh, sh.placements)
 
-    return tree_map(place, tree, shardings)
+    return tree_map(one, tree, shardings)
+
+
+def place(x, mesh, placements):
+    """A whole tensor, the same on every rank → a DTensor placed by
+    ``placements``: this rank keeps its block (a copy where it is a part
+    of the tensor), no communication."""
+    import torch
+
+    lshape, off = local_shape_and_offset(x.shape, mesh, placements)
+    local = x
+    for d, (ln, o) in enumerate(zip(lshape, off)):
+        if ln != x.shape[d]:
+            local = local.narrow(d, o, ln)
+    if local is not x:
+        # a copy: a slice (even a contiguous one) would keep the whole
+        # tensor's storage alive
+        local = local.clone(memory_format=torch.contiguous_format)
+    return from_local(local, mesh, placements, x.shape)
 
 
 def submesh(mesh, axes):

@@ -42,16 +42,44 @@ BF16_CASE = ("qwen3-14b", (4, 1), ("data", "model"), "data", 4)
 def rounds_of(case):
     """(name, reducer, inter reducer, start) of each round a case runs:
     start "local" is the state after K local steps, "noise" the noisy
-    start."""
+    start. Two-level rounds: intra reducer ∘ inter reducer."""
     axis = CASES[case][3]
     if axis == "pod" or case.startswith("m4"):
         return [("dense", "dense", None, "local")]
     if isinstance(axis, tuple):
         return [("hier", "dense", "int8", "local"),
-                ("hier-noise", "dense", "int8", "noise")]
+                ("hier-noise", "dense", "int8", "noise"),
+                ("hier-int8", "int8", "int8", "local"),
+                ("hier-int8-noise", "int8", "int8", "noise"),
+                ("hier-topk-noise", "topk", "dense", "noise")]
     return [("dense", "dense", None, "local"),
             ("int8", "int8", None, "local"),
-            ("int8-noise", "int8", None, "noise")]
+            ("int8-noise", "int8", None, "noise"),
+            ("topk", "topk", None, "local"),
+            ("topk-noise", "topk", None, "noise")]
+
+
+# rounds the port also runs streaming (leaf by leaf, reverse-layer
+# order), as "<name>-streaming": equal to the blocking round bit for bit
+STREAMING_ROUNDS = {"dm-qwen3": "topk-noise", "pdm-qwen3": "hier-int8-noise"}
+# a round whose state the port's mesh run gathers and places again
+# (``gather_state`` / ``place_state``), then rounds once more from it and
+# from the state it kept: "<name>-replaced" and "<name>-again", equal
+REPLACED_ROUND = ("pdm-qwen3", "hier-int8-noise")
+
+# top-k ties across the model split: a hand-made tree of deltas from five
+# values (most magnitudes tied), each leaf split over data (clients) and
+# model (its dim), reduced from a zero reference and residual at each
+# frac (0.9: each rank's block holds fewer elements than the leaf's k)
+TIE_MESH = ((2, 2), ("data", "model"))
+TIE_FRACS = (0.3, 0.9)
+
+
+def tie_tree():
+    """name → (deltas (2, ...), the dim split over ``model``)."""
+    rng = np.random.RandomState(7)
+    return {"a": ((rng.randint(-2, 3, (2, 4, 6)) / 2).astype(np.float32), 2),
+            "b": ((rng.randint(-2, 3, (2, 6, 4)) / 2).astype(np.float32), 1)}
 
 
 def batches(cfg_vocab, case, seed=0):
@@ -198,6 +226,7 @@ def port_worker(rank, world, init, inp_path, out_path):
     try:
         out = run_port_cases(inp_path)
         out["serving"] = run_serving_cases(inp_path)
+        out["ties"] = run_tie_cases()
         if rank == 0:
             with open(out_path, "wb") as f:
                 pickle.dump(out, f)
@@ -247,12 +276,23 @@ def run_port_cases(inp_path, device_route=False):
                                    inp[case]["init"]["opt"]),
                     "step": K}
         for name, red, inter, frm in rounds_of(case):
-            _, sync, _ = TLS.build_train_steps(
-                cfg, where, client_axis=ca, reducer=red,
-                inter_reducer=inter, n_pods=2,
-                rng=JaxKey(jax.random.key(0)))
-            s0 = place(local_np if frm == "local" else inp[case]["noise"])
-            res[name] = whole(sync(s0))
+            for streaming in (False, True):
+                if streaming and STREAMING_ROUNDS.get(case) != name:
+                    continue
+                _, sync, _ = TLS.build_train_steps(
+                    cfg, where, client_axis=ca, reducer=red,
+                    inter_reducer=inter, n_pods=2, streaming=streaming,
+                    rng=JaxKey(jax.random.key(0)))
+                s0 = place(local_np if frm == "local"
+                           else inp[case]["noise"])
+                s1 = sync(s0)
+                res[name + ("-streaming" if streaming else "")] = whole(s1)
+            if (case, name) == REPLACED_ROUND and not device_route:
+                s1["step"] += 1   # the next round's key
+                again = sync(TLS.place_state(TLS.gather_state(s1), where,
+                                             ca))
+                res[name + "-replaced"] = whole(again)
+                res[name + "-again"] = whole(sync(s1))
         out[case] = res
 
     arch, shape, axes, ca, n = BF16_CASE
@@ -267,6 +307,48 @@ def run_port_cases(inp_path, device_route=False):
     out["bf16"] = {part: flat((p, x.float()) for p, x in
                               tree_flatten_with_path(state[part])[0])
                    for part in ("params", "opt")}
+    return out
+
+
+def run_tie_cases():
+    """``TopKMean.reduce`` of ``tie_tree`` on a mesh of the process
+    group's ranks at each of ``TIE_FRACS``: {frac: {"consensus" | "res":
+    {name: whole numpy}}}."""
+    import torch
+    from torch.distributed.tensor import Shard
+
+    from repro_torch.comm import TopKMean
+    from repro_torch.comm.shards import LeafShards, client_group, \
+        row_placements
+    from repro_torch.launch.mesh import _device_mesh
+    from repro_torch.sharding.rules import from_local, place
+    from repro_torch.utils.rng import TorchKey
+
+    mesh = _device_mesh("cpu", *TIE_MESH)
+    tree = tie_tree()
+    out = {}
+    for frac in TIE_FRACS:
+        x, state, shards = {}, {"ref": {}, "res": {}}, []
+        for name in sorted(tree):
+            arr, dim = tree[name]
+            pl = (Shard(0), Shard(dim))
+            whole = torch.from_numpy(arr)
+            x[name] = place(whole, mesh, pl).to_local()
+            state["ref"][name] = place(torch.zeros(whole.shape[1:]), mesh,
+                                       row_placements(pl, 3)).to_local()
+            state["res"][name] = torch.zeros_like(x[name])
+            shards.append(LeafShards(client_group(mesh, ("data",), 2),
+                                     whole.shape, pl))
+        cons, new = TopKMean(frac=frac).reduce(x, state, TorchKey(0),
+                                               shards)
+        out[frac] = {
+            "consensus": {n: np.array(from_local(
+                cons[n], mesh, row_placements(sh.placements, 3),
+                sh.shape[1:]).full_tensor()) for n, sh in zip(sorted(tree),
+                                                             shards)},
+            "res": {n: np.array(from_local(
+                new["res"][n], mesh, sh.placements, sh.shape).full_tensor())
+                for n, sh in zip(sorted(tree), shards)}}
     return out
 
 

@@ -121,6 +121,46 @@ def test_reducer_consensus_and_ef_state_match_jax(spec, kw):
             _close_tree(tst["res"], jst["res"], 1e-6)
 
 
+def _planted_ties(seed):
+    """(3, 240) deltas from nine values: most magnitudes tied, and ties at
+    each row's k-th largest for any frac."""
+    rng = np.random.RandomState(seed)
+    return (rng.randint(-4, 5, (3, 240)) / 4).astype(np.float32)
+
+
+@pytest.mark.parametrize("y,frac", [
+    ([[2, -1, -2, 2, 0.5, -2], [1, 3, -3, 0, 3, 1]], 0.34),
+    ([[0, 2, 1, 2, 0, 2]], 0.34),
+    (_planted_ties(0), 0.1), (_planted_ties(1), 0.34),
+    (_planted_ties(2), 0.5), (_planted_ties(3), 0.9)])
+def test_topk_ties_keep_the_lower_index_as_jax_does(y, frac):
+    """Among equal magnitudes ``jax.lax.top_k`` keeps the lower index; so
+    must the port: the messages, their mean, and a round's consensus and
+    residuals from a zero reference and residual, exactly."""
+    from repro.comm import TopKMean as JTopK
+    from repro_torch.comm import TopKMean as TTopK
+
+    y = np.asarray(y, np.float32)
+    jd, jm = JTopK(frac=frac)._compress(jnp.asarray(y), None)
+    td, tm = TTopK(frac=frac)._compress(torch.from_numpy(y), None)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    k = JTopK(frac=frac)._k(y.shape[1])
+    assert ((td != 0).sum(dim=1) <= k).all()
+    x = {"w": y.reshape(y.shape[0], 2, -1)}
+    zero = {"ref": {"w": np.zeros(x["w"].shape[1:], np.float32)},
+            "res": {"w": np.zeros_like(x["w"])}}
+    jc, jst = JTopK(frac=frac).reduce(jax.tree.map(jnp.asarray, x),
+                                      jax.tree.map(jnp.asarray, zero),
+                                      jax.random.key(0))
+    tc, tst = TTopK(frac=frac).reduce(
+        params_from_jax(x), params_from_jax(zero), TorchKey(0))
+    np.testing.assert_array_equal(tc["w"].numpy(), np.asarray(jc["w"]))
+    for part in ("ref", "res"):
+        np.testing.assert_array_equal(tst[part]["w"].numpy(),
+                                      np.asarray(jst[part]["w"]))
+
+
 def test_quantized_reducer_variants_match_jax():
     from repro.comm import QuantizedMean as JQM
     from repro_torch.comm import QuantizedMean as TQM

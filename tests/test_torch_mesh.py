@@ -144,6 +144,45 @@ def test_mesh_local_steps_match_the_reference(runs, case):
            f"{case} mesh vs device route")
 
 
+def _topk_near_cut(local, frac=0.1, tol=1e-5):
+    """Per leaf path, where the reference's first top-k round from
+    ``local`` (ref = client 0's params, no residual: y = x - x[0]) meets
+    elements within ``tol`` of their row's k-th largest magnitude."""
+    near = {}
+    for path, x in local["params"].items():
+        a = np.abs(x - x[:1]).reshape(x.shape[0], -1)
+        k = max(1, min(a.shape[1], int(round(frac * a.shape[1]))))
+        t = -np.sort(-a, axis=1)[:, k - 1:k]
+        near[path] = (np.abs(a - t) <= tol).reshape(x.shape)
+    return near
+
+
+def _check_topk_round(got, want, near, what):
+    """A top-k round after the local steps: within 1e-5, except at
+    elements one run keeps and the other drops, which lie within 1e-5 of
+    their row's k-th largest magnitude — at most one in 10^4 of a leaf."""
+    for part in _keys(got, want):
+        for p in _keys(got[part], want[part]):
+            bad = np.abs(got[part][p] - want[part][p]) > 1e-5
+            if not bad.any():
+                continue
+            assert bad.mean() <= 1e-4, (what, part, p, bad.mean())
+            leaf = next(k for k in near if p.endswith(k))
+            flips = near[leaf] if bad.shape == near[leaf].shape else \
+                near[leaf].any(axis=0)
+            assert flips[bad].all(), (what, part, p)
+
+
+def _check_topk_noise(got, want, what):
+    """A top-k round from the same replicas: the same kept elements, so
+    residuals exactly equal, the consensus within 1e-6."""
+    for part in _keys(got, want):
+        for p in _keys(got[part], want[part]):
+            tol = 0.0 if "['res']" in p else 1e-6
+            d = np.abs(got[part][p] - want[part][p])
+            assert d.max() <= tol, (what, part, p, d.max())
+
+
 @pytest.mark.parametrize("case,name", ROUND_CASES)
 def test_mesh_rounds_match_the_reference(runs, case, name):
     reference, port, device = runs
@@ -152,6 +191,15 @@ def test_mesh_rounds_match_the_reference(runs, case, name):
     if "comm" not in want:   # dense rounds
         _close(got, want, 1e-5, f"{case} {name} mesh vs JAX")
         _close(got, dev, 1e-5, f"{case} {name} mesh vs device route")
+        return
+    if "topk" in name:
+        if name.endswith("noise"):
+            _check_topk_noise(got, want, f"{case} {name} mesh vs JAX")
+            _check_topk_noise(got, dev, f"{case} {name} mesh vs device")
+        else:
+            near = _topk_near_cut(reference[case]["local"])
+            _check_topk_round(got, want, near, f"{case} {name} mesh vs JAX")
+            _check_topk_round(got, dev, near, f"{case} {name} mesh vs device")
         return
     q = _residual_quanta(want)
     for part in _keys(got, want):
@@ -180,6 +228,62 @@ def test_int8_rounds_quantize_something(runs):
     assert min(q.values()) > 0
 
 
+@pytest.mark.parametrize("case", sorted(MC.STREAMING_ROUNDS))
+def test_mesh_streaming_round_equals_the_blocking_one(runs, case):
+    """The port's streaming round (leaf by leaf, reverse-layer order) on
+    the mesh, and on one device, equals its blocking round bit for bit."""
+    _, port, device = runs
+    name = MC.STREAMING_ROUNDS[case]
+    for run in (port, device):
+        got, want = run[case][name + "-streaming"], run[case][name]
+        for part in _keys(got, want):
+            for p in _keys(got[part], want[part]):
+                np.testing.assert_array_equal(got[part][p], want[part][p],
+                                              err_msg=f"{case} {part} {p}")
+
+
+def test_mesh_state_gathered_and_placed_again_rounds_the_same(runs):
+    """``gather_state`` then ``place_state`` gives back what the mesh
+    round keeps (the two-level round's per-pod intra state included): a
+    round from it equals a round from the kept state bit for bit."""
+    _, port, _ = runs
+    case, name = MC.REPLACED_ROUND
+    got, want = port[case][name + "-replaced"], port[case][name + "-again"]
+    assert "comm" in want
+    assert any("['intra'][1]" in p for p in want["comm"])
+    for part in _keys(got, want):
+        for p in _keys(got[part], want[part]):
+            np.testing.assert_array_equal(got[part][p], want[part][p],
+                                          err_msg=f"{part} {p}")
+
+
+@pytest.mark.parametrize("frac", MC.TIE_FRACS)
+def test_topk_ties_across_the_model_split_keep_the_reference_indices(
+        runs, frac):
+    """``TopKMean.reduce`` of a tree whose tied magnitudes straddle the
+    ``model`` split (each leaf's dim over 2 ranks, clients over data)
+    keeps what ``jax.lax.top_k`` keeps: the consensus and residuals of
+    the reference's reduce on the whole tree, exactly."""
+    from repro.comm import TopKMean as JTopK
+
+    _, port, _ = runs
+    tree = {n: x for n, (x, _) in MC.tie_tree().items()}
+    zero = {"ref": {n: np.zeros(x.shape[1:], np.float32)
+                    for n, x in tree.items()},
+            "res": {n: np.zeros_like(x) for n, x in tree.items()}}
+    cons, st = JTopK(frac=frac).reduce(jax.tree.map(jax.numpy.asarray, tree),
+                                       jax.tree.map(jax.numpy.asarray, zero),
+                                       jax.random.key(0))
+    got = port["ties"][frac]
+    for n in tree:
+        np.testing.assert_array_equal(got["consensus"][n],
+                                      np.asarray(cons[n]), err_msg=n)
+        np.testing.assert_array_equal(got["res"][n], np.asarray(st["res"][n]),
+                                      err_msg=n)
+        kept = (got["res"][n] == 0) & (tree[n] != 0)
+        assert kept.any() and not kept.all()
+
+
 def test_one_rank_mesh_is_bit_equal_to_the_device_route():
     import torch.distributed as dist
 
@@ -193,25 +297,27 @@ def test_one_rank_mesh_is_bit_equal_to_the_device_route():
     assert not dist.is_initialized()
     mesh = make_host_mesh(1, 1, device="cpu")
     try:
-        outs = []
-        for where in ("cpu", mesh):
-            state = TLS.init_state(0, cfg, 2, device="cpu")
-            if where is mesh:
-                state = TLS.place_state(state, mesh)
-            local, sync, _ = TLS.build_train_steps(
-                cfg, where, reducer="int8", rng=JaxKey(jax.random.key(0)))
-            for b in MC.batches(cfg.vocab_size, "dm-qwen3"):
-                b = {k: torch.from_numpy(v).long() for k, v in b.items()}
-                state, m = local(state, b, MC.ETA)
-            state = sync(state)
-            state = TLS.gather_state(state)
-            outs.append(([x for _, x in tree_flatten_with_path(
-                {k: v for k, v in state.items() if k != "step"})[0]],
-                m["loss"]))
-        (a, la), (b, lb) = outs
-        assert len(a) == len(b) > 0
-        assert all(torch.equal(x, y) for x, y in zip(a, b))
-        assert torch.equal(la, lb)
+        for reducer in ("int8", "topk"):
+            outs = []
+            for where in ("cpu", mesh):
+                state = TLS.init_state(0, cfg, 2, device="cpu")
+                if where is mesh:
+                    state = TLS.place_state(state, mesh)
+                local, sync, _ = TLS.build_train_steps(
+                    cfg, where, reducer=reducer,
+                    rng=JaxKey(jax.random.key(0)))
+                for b in MC.batches(cfg.vocab_size, "dm-qwen3"):
+                    b = {k: torch.from_numpy(v).long() for k, v in b.items()}
+                    state, m = local(state, b, MC.ETA)
+                state = sync(state)
+                state = TLS.gather_state(state)
+                outs.append(([x for _, x in tree_flatten_with_path(
+                    {k: v for k, v in state.items() if k != "step"})[0]],
+                    m["loss"]))
+            (a, la), (b, lb) = outs
+            assert len(a) == len(b) > 0
+            assert all(torch.equal(x, y) for x, y in zip(a, b)), reducer
+            assert torch.equal(la, lb)
     finally:
         dist.destroy_process_group()
 

@@ -314,6 +314,32 @@ def test_train_main_matches_jax(monkeypatch):
     assert got.comm_bytes_total == want.comm_bytes_total
 
 
+@pytest.mark.parametrize("topology", ["star", "streaming"])
+def test_train_main_topk_matches_jax(monkeypatch, topology):
+    """``launch.train.main --reducer topk`` (the round on the launcher's
+    1×1 mesh), blocking and streaming, both packages from the JAX
+    package's initial state: the same stages, rounds and ledger, mean
+    losses within the bound of ``test_train_main_matches_jax``."""
+    argv = ["--arch", "qwen3-14b", "--smoke", "--clients", "2", "--seq",
+            "32", "--batch", "1", "--T1", "4", "--k1", "2", "--stages", "1",
+            "--steps", "4", "--reducer", "topk", "--topology", topology]
+    want = JT.main(argv)
+    jcfg = jax_get_arch("qwen3-14b", smoke=True)
+
+    def from_jax(seed, cfg, n, optimizer, *, device=None):
+        return train_state_from_jax(to_numpy_tree(
+            JLS.init_state(jax.random.key(seed), jcfg, n, optimizer)), device)
+
+    monkeypatch.setattr(TLS, "init_state", from_jax)
+    got = TT.main(argv + ["--device", "cpu"])
+    assert [(r.stage, r.k, r.iters, r.rounds) for r in got.results] == \
+        [(r.stage, r.k, r.iters, r.rounds) for r in want.results] == \
+        [(1, 2, 4, 2)]
+    for a, b in zip(got.results, want.results):
+        assert a.mean_loss == pytest.approx(b.mean_loss, abs=2e-2)
+    assert got.comm_bytes_total == want.comm_bytes_total == 4_618_624
+
+
 @pytest.mark.parametrize("arch", ["recurrentgemma-2b", "internvl2-2b",
                                   "musicgen-medium"])
 def test_train_main_on_the_rglru_and_frontend_archs_matches_jax(
