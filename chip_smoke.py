@@ -70,8 +70,9 @@ failure propagates, so the script exits non-zero and prints no result.
      80-token prompt through ``prefill`` and 8 decode steps, logits to
      1e-4.
   7. Serving at full width: gemma2-27b FULL (d_model 4608, vocab 256000,
-     bfloat16, random weights from seed 0), its depth cut to 24 of 46
-     layers since phase 19 joined the script (the run's time), behind
+     bfloat16, random weights from seed 0), its depth cut to 12 of 46
+     layers (24 since phase 19 joined the script, 12 since phase 22 did:
+     the run's time), behind
      ``ServeEngine`` with 4 slots of 6,144 tokens, 6 Poisson requests plus
      one 4,608-token prompt (the window bites in prefill, the local ring
      wraps in decode). Every request must complete, flash attention must
@@ -103,11 +104,12 @@ failure propagates, so the script exits non-zero and prints no result.
      last chunk) through ``prefill`` and 8 decode steps, logits to 1e-4.
  10. Serving at full width: mamba2-2.7b FULL (d_model 2560, 80 SSD
      heads, vocab 50280, bfloat16, random weights from seed 0), its depth
-     cut to 32 of 64 layers since phase 19 joined the script, behind
+     cut to 16 of 64 layers (32 since phase 19 joined the script, 16
+     since phase 22 did), behind
      ``ServeEngine`` with 8 slots of 6,144 tokens, 12 Poisson requests,
      one 4,000-token prompt with 24 outputs and a one-token prompt that
      lands in a used slot after the drain. Every request must
-     complete, the SSD kernel must launch 32 times per multi-token
+     complete, the SSD kernel must launch 16 times per multi-token
      prefill, and the tokens must match ``greedy_decode`` as in phase 7.
      Timed and profiled as phase 7.
  11. The adaptive period (``algo="adaptive"``): first the card's run
@@ -244,13 +246,14 @@ failure propagates, so the script exits non-zero and prints no result.
      backward's bound (``ssd_bwd_work``). (b) mamba2-2.7b SMOKE as 16b
      runs qwen3 SMOKE (dense, int8, hier; the same limits; the SSD
      forward twice a layer a client a step), its control with the SSD
-     output detached. (c) mamba2-2.7b at full width, its depth cut to 16
-     of 64 layers (since phase 19, for the run's time; bf16, seed 0),
+     output detached. (c) mamba2-2.7b at full width, its depth cut to 8
+     of 64 layers (16 since phase 19, 8 since phase 22, for the run's
+     time; bf16, seed 0),
      through ``launch/train.main`` with ``--profile
      --profile-dir --profile-calls 2 --trace --ckpt-out``: 2 clients, 2
      sequences of 1,024 tokens a client a step, stl_sc eta1 0.05, T1 8, k1
      4, 2 stages cut at 16 local steps: the loss finite and falling, the
-     launches (SSD 64 and fused update 2 a local step), the ledger, ms a
+     launches (SSD 32 and fused update 2 a local step), the ledger, ms a
      step against its bound (GEMMs at 989 TFLOP/s, the scan at a third of
      it), peak memory, the skew table, device ms a step by kind over the
      profiler's 2 traced steps (GEMMs, SSD forward, the plain SSD
@@ -293,8 +296,8 @@ failure propagates, so the script exits non-zero and prints no result.
      decode steps: device ms a step by the layer's parts (attention, the
      MoE layer and its ``moe.*`` ranges, the dense MLP, the rest) and the
      share of the wall a kernel runs. (c) gemma3-12b at full width
-     (5:1 local:global, window 1,024), its depth cut to 24 of 48 layers
-     since phase 19 joined the script,
+     (5:1 local:global, window 1,024), its depth cut to 12 of 48 layers
+     (24 since phase 19 joined the script, 12 since phase 22 did),
      with the int8 KV cache behind ``ServeEngine`` (4 slots of 6,144, a
      4,608-token prompt), as phase 7; the first decode step after a
      2,000-token prompt within 2e-2 of the bf16 cache's largest logit;
@@ -323,33 +326,37 @@ failure propagates, so the script exits non-zero and prints no result.
      recurrentgemma's local layer (1, 4,608, 10/1, 256, window 2,048) and
      training layer (2, 1,024), internvl2's (1, 768, 16/8, 128) and
      musicgen's training layer (2, 1,280, 24/24, 64). (b)
-     recurrentgemma-2b at full width and depth (26 layers, d_model 2,560,
-     lru 2,560, 10/1 heads of 256, window 2,048, vocab 256,000, tied, bf16,
-     seed 0) behind ``ServeEngine``, 4 slots of 6,144 tokens, 6 Poisson
-     requests and a 4,608-token prompt, as phase 7 (8 flash launches a
-     prefill, tokens held to ``greedy_decode``); the bounds the engine
+     recurrentgemma-2b at full width (26 layers, d_model 2,560, lru 2,560,
+     10/1 heads of 256, window 2,048, vocab 256,000, tied, bf16, seed 0),
+     its depth cut to 13 layers since phase 22 joined the script, behind
+     ``ServeEngine``, 4 slots of 6,144 tokens, 6 Poisson requests and a
+     4,608-token prompt, as phase 7 (4 flash launches a prefill, tokens
+     held to ``greedy_decode``); the bounds the engine
      prices, a slot's recurrent state against its attention cache in
      bytes, the decode profile with a ``layer.rglru`` range. (c)
-     recurrentgemma-2b at full width and depth through
+     recurrentgemma-2b at full width, depth cut to 13 of 26 layers since
+     phase 22 joined the script, through
      ``launch/train.main`` (``--profile --profile-dir --profile-calls 1
      --ckpt-out``; 2 clients, 2 x 1,024 tokens a client a step, stl_sc
      eta1 0.05, T1 8, k1 4, 2 stages cut at 16 local steps, dense Star):
-     the loss finite and falling, flash 32 and the update 4 launches a step
+     the loss finite and falling, flash 16 and the update 4 launches a step
      (the float32 ``a_param`` rows are a type group of their own), ms a
      step against its bound (``lm_step_work``), peak memory, device ms a
      step by kind, the RG-LRU scan's device ms at the training layer and
      a step (``rglru_scan_ms``), one client's update at the trained state
-     as 16c; its checkpoint served as 17d. (d) internvl2-2b at full width
-     and depth behind ``ServeEngine``, 4 slots of 2,048 tokens, 6 Poisson
+     as 16c; its checkpoint served as 17d. (d) internvl2-2b at full width,
+     12 of 24 layers since phase 22 joined the script, behind
+     ``ServeEngine``, 4 slots of 2,048 tokens, 6 Poisson
      requests, each with 256 patch embeddings of width 1,024 (float32 from
-     a seed, bfloat16 on the card) and a prompt of 64-512 tokens: 24 flash
+     a seed, bfloat16 on the card) and a prompt of 64-512 tokens: 12 flash
      launches a prefill, tokens held to ``greedy_decode(..., frontend=)``;
      the logits with the frontend differ from those without it, and the
      engine prices a frontend prefill with its 256 tokens. (e)
-     musicgen-medium at full width and depth (48 layers) through
+     musicgen-medium at full width, depth cut to 24 of 48 layers since
+     phase 22 joined the script, through
      ``launch/train.main`` with frontend batches (2 clients, 2 x (256
      frames + 1,024 tokens), eta1 0.03, T1 8, k1 4, 16 local steps, dense
-     Star, ``--profile``): the loss finite and falling, flash 192 and the
+     Star, ``--profile``): the loss finite and falling, flash 96 and the
      update 2 launches a step, ms a step against its bound, peak memory.
      Then the training kernels at the (2, n) blocks 19a's int8 rounds hand them
      that earlier phases' did not.
@@ -359,11 +366,25 @@ failure propagates, so the script exits non-zero and prints no result.
      17d's serving run, 18a's four card training runs, 18b's and 18c's
      serving runs and 18d's main run, 19a's four card training runs,
      19b's, 19c's checkpoint's and 19d's serving runs and 19c's and 19e's
-     main runs, not
+     main runs, phase 21's mesh runs and phase 22's card runs, not
      the comparison launches, the profiles or 16c's streaming check; the
      flash row carries phase 16a as ``train`` and 18a's padded MLA calls
      as ``mla_shapes``, the SSD row phase 17a),
      then the last line ``{"ok": true, "device": {...}}``.
+ 22. The five user examples (``examples_torch/``), each script's sections
+     on the card at its own widths, run after phase 21 and before the
+     summary: (a) quickstart's f* and its three runs held against the same
+     sections on the CPU from the same draws (f* 1e-6 relative, histories
+     1e-4, rounds to each gap equal, or one eval interval apart where both
+     runs' records lie within 1e-6 of the target; the margin printed);
+     (b) hierarchical_pods' three topologies and its driver section,
+     whose own asserts hold the executed byte ledger to the tree totals;
+     (c) federated_noniid's sections, the MLP's streaming uploads
+     bit-equal to blocking on the card; (d) serve_batched whole, request 0
+     held to ``greedy_decode``; (e) train_llm_stl --hundred-m at 160 local
+     steps, its loss falling. Stages, rounds and steps are cut for the
+     script's time, each cut logged; the update, quantize, dequant_mean
+     and flash kernels must each launch in the phase's card runs.
 """
 from __future__ import annotations
 
@@ -1555,7 +1576,8 @@ def kernel_layers(cfg, kname: str) -> int:
 # layer, and whether a one-token prompt joins a used slot after the drain.
 # Phase 18's cells add a depth cut (``layers``; since phase 19 joined the
 # script, gemma2's, mamba2's and gemma3's cells are cut too, for the run's
-# time), the slots' length
+# time, and since phase 22 did, to a quarter of their depth, with
+# recurrentgemma's and internvl2's cut to half), the slots' length
 # (``max_seq_len``, default 6,144) and the int8 KV cache (``kv_quant``);
 # phase 19's frontend requests (``frontend``: each request carries its own
 # embeddings, float32 from a seed, its prompt drawn in ``prompt_range``)
@@ -1563,22 +1585,23 @@ def kernel_layers(cfg, kname: str) -> int:
 SERVE_CELLS = {
     "gemma2-27b": dict(n_slots=4, n_requests=6, long_len=4608, long_out=24,
                        kernel="flash_attention", one_token=False,
-                       layers=24),
+                       layers=12),
     "mamba2-2.7b": dict(n_slots=8, n_requests=12, long_len=4000, long_out=24,
-                        kernel="ssd", one_token=True, layers=32),
+                        kernel="ssd", one_token=True, layers=16),
     "deepseek-v2-236b": dict(n_slots=4, n_requests=6, long_len=3000,
                              long_out=16, kernel="flash_attention",
                              one_token=False, layers=4, max_seq_len=4096),
     "gemma3-12b": dict(n_slots=4, n_requests=4, long_len=4608, long_out=16,
                        kernel="flash_attention", one_token=False,
-                       kv_quant=True, layers=24),
+                       kv_quant=True, layers=12),
     "recurrentgemma-2b": dict(n_slots=4, n_requests=6, long_len=4608,
                               long_out=24, kernel="flash_attention",
-                              one_token=False),
+                              one_token=False, layers=13),
     "internvl2-2b": dict(n_slots=4, n_requests=6, long_len=1024,
                          long_out=16, kernel="flash_attention",
                          one_token=False, max_seq_len=2048, frontend=True,
-                         prompt_range=(64, 512), long_request=False),
+                         prompt_range=(64, 512), long_request=False,
+                         layers=12),
 }
 
 
@@ -3587,11 +3610,12 @@ def run_qwen3_training(torch, dev="cuda:0") -> dict:
 SSD_TRAIN_CASES = {"mamba2 train": (2, 1024, 80, 64, 1, 128, 256),
                    "mamba2 smoke": (2, 64, 8, 64, 1, 32, 64)}
 # 17c: mamba2-2.7b at full width through launch/train.main, its depth cut
-# to 16 of 64 layers (since phase 19 joined the script: the run's time): 2
+# to 8 of 64 layers (16 since phase 19 joined the script, 8 since phase 22
+# did: the run's time): 2
 # clients, 2 sequences of 1,024 tokens a client a step, stl_sc T1 8, k1 4,
 # 2 stages cut at 16 local steps (8 + 8, 3 rounds); the profiler traces 2
 # train steps after a warm-up one (a whole run's trace would be gigabytes)
-MAMBA2_TRAIN = {"layers": 16, "clients": 2, "batch": 2, "seq": 1024,
+MAMBA2_TRAIN = {"layers": 8, "clients": 2, "batch": 2, "seq": 1024,
                 "T1": 8, "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.05,
                 "profile_calls": 2}
 # 17d: the checkpoint 17c wrote, behind launch/serve.main
@@ -3704,7 +3728,7 @@ def mamba2_step_work(cfg, q) -> dict:
 
 
 def run_mamba2_training(torch, tmp: Path) -> dict:
-    """Phase 17c: mamba2-2.7b at full width, its depth cut to 16 of 64
+    """Phase 17c: mamba2-2.7b at full width, its depth cut to 8 of 64
     layers (bf16, seed 0), through ``launch/train.main`` with
     ``--profile --profile-dir --profile-calls --trace --ckpt-out``: the
     loss finite and its last stage's mean below its first's, the
@@ -3861,7 +3885,7 @@ def serve_checkpoint(torch, ck: Path, tmp: Path, sums,
     ``launch/serve.main(["--ckpt", ..., "--trace", ..., "--profile"])`` on
     the card: every request served, the restored params' per-leaf sums
     equal those of the consensus trained, ``kname`` launched once a layer
-    of its kind a multi-token prefill (the SSD scan 64 times), each first
+    of its kind a multi-token prefill (the SSD scan 8 times), each first
     token equal to ``greedy_decode``'s on the restored params (later ones
     up to a near tie, as phase 10), the serve trace parses."""
     from unittest import mock
@@ -3931,7 +3955,7 @@ def serve_checkpoint(torch, ck: Path, tmp: Path, sums,
 
 def run_mamba2_phase(torch) -> dict:
     """Phase 17: 17a the SSD Function's gradients, 17b mamba2 SMOKE card
-    against CPU, 17c mamba2-2.7b training at full width (16 of 64 layers),
+    against CPU, 17c mamba2-2.7b training at full width (8 of 64 layers),
     17d serving its checkpoint. The checkpoint and traces go to a temporary
     directory, removed at the end."""
     import tempfile
@@ -4433,7 +4457,7 @@ def run_moe_mla_phase(torch, floor) -> dict:
     cache; training: phi3.5-moe and minicpm3 under dense and int8 Star),
     flash at gemma3's and phi3.5's layers, the padded MLA calls; 18b
     deepseek-v2 served at full width (4 of 60 layers); 18c gemma3-12b at
-    full width and depth with the int8 KV cache; 18d phi3.5-moe trained at
+    full width (12 of 48 layers) with the int8 KV cache; 18d phi3.5-moe trained at
     full width (2 of 32 layers). The training kernels at the (2, n) blocks
     18a's int8 rounds hand them that 16b's did not."""
     import tempfile
@@ -4494,17 +4518,20 @@ RG_FLASH_CASES = {
     "internvl2 prefill": (1, 768, 16, 8, 128, "bf16", None, None),
     "musicgen train": (2, 1280, 24, 24, 64, "bf16", None, None),
 }
-# 19c: recurrentgemma-2b at full width and depth through launch/train.main,
-# 17c's schedule (eta1 0.05, T1 8, k1 4, 2 stages cut at 16 local steps);
-# the profiler traces one train step after a warm-up one
-RG_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8, "k1": 4.0,
-            "stages": 2, "steps": 16, "eta1": 0.05, "profile_calls": 1}
-# 19e: musicgen-medium at full width and depth with frontend batches (256
-# frames before 1,024 tokens): 16c's rate and k1 (eta1 0.03, k1 4), T1 8 so
-# that the 16 local steps span two stages, as 17c's do; no profiler window
+# 19c: recurrentgemma-2b at full width through launch/train.main, its
+# depth cut to 13 of 26 layers since phase 22 joined the script (the run's
+# time), 17c's schedule (eta1 0.05, T1 8, k1 4, 2 stages cut at 16 local
+# steps); the profiler traces one train step after a warm-up one
+RG_TRAIN = {"layers": 13, "clients": 2, "batch": 2, "seq": 1024, "T1": 8,
+            "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.05,
+            "profile_calls": 1}
+# 19e: musicgen-medium at full width with frontend batches (256 frames
+# before 1,024 tokens), its depth cut to 24 of 48 layers since phase 22
+# joined the script: 16c's rate and k1 (eta1 0.03, k1 4), T1 8 so that the
+# 16 local steps span two stages, as 17c's do; no profiler window
 # (``--profile`` alone: each step's time, synchronised)
-MUSICGEN_TRAIN = {"clients": 2, "batch": 2, "seq": 1024, "T1": 8,
-                  "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.03,
+MUSICGEN_TRAIN = {"layers": 24, "clients": 2, "batch": 2, "seq": 1024,
+                  "T1": 8, "k1": 4.0, "stages": 2, "steps": 16, "eta1": 0.03,
                   "profile_calls": None}
 # 19d: the logits of a prefill with the frontend and without it must differ
 # by more than this share of the largest logit
@@ -4731,7 +4758,8 @@ def rglru_scan_ms(torch, cfg, q) -> dict:
 
 def run_train_main(torch, tmp: Path, arch: str, q: dict, tag: str,
                    ckpt: bool = False, update_check: bool = False) -> dict:
-    """Phases 19c and 19e: ``arch`` at full width and depth (bf16, seed 0)
+    """Phases 19c and 19e: ``arch`` at full width, its depth cut to
+    ``q["layers"]`` (bf16, seed 0),
     through ``launch/train.main`` with ``--profile --profile-dir
     --profile-calls`` (and ``--ckpt-out``): 2 clients, 2 sequences of 1,024
     tokens a client a step (after a frontend arch's embeddings), dense
@@ -4749,8 +4777,10 @@ def run_train_main(torch, tmp: Path, arch: str, q: dict, tag: str,
     from repro_torch.launch import train as TT
     from repro_torch.utils.tree import tree_leaves, tree_map
 
-    cfg = get_arch(arch)
-    argv = ["--arch", arch, "--clients", str(q["clients"]),
+    full = get_arch(arch)
+    cfg = full.replace(n_layers=q.get("layers", full.n_layers))
+    argv = ["--arch", arch, "--layers", str(cfg.n_layers),
+            "--clients", str(q["clients"]),
             "--batch", str(q["batch"]), "--seq", str(q["seq"]),
             "--algo", "stl_sc", "--eta1", str(q["eta1"]),
             "--T1", str(q["T1"]), "--k1", str(q["k1"]),
@@ -4761,6 +4791,9 @@ def run_train_main(torch, tmp: Path, arch: str, q: dict, tag: str,
                  "--profile-calls", str(q["profile_calls"])]
     if ckpt:
         argv += ["--ckpt-out", str(tmp / "ck")]
+    if cfg.n_layers != full.n_layers:
+        log(f"[cut] {tag}: {arch} at full width, depth cut to "
+            f"{cfg.n_layers} of {full.n_layers} layers")
     log(f"[{tag}] launch.train.main {' '.join(argv)}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4866,9 +4899,10 @@ def run_rglru_frontend_phase(torch, floor) -> dict:
     recurrentgemma-2b, internvl2-2b and musicgen-medium, a used slot's
     prefill; training recurrentgemma and musicgen under dense and int8
     Star), flash at the phase's new shapes; 19b recurrentgemma-2b served at
-    full width and depth; 19c recurrentgemma-2b trained at full width and
-    depth, then its checkpoint served; 19d internvl2-2b served with
-    frontend requests; 19e musicgen-medium trained with frontend batches.
+    full width (13 of 26 layers); 19c recurrentgemma-2b trained at full
+    width (13 of 26 layers), then its checkpoint served; 19d internvl2-2b
+    served with frontend requests (12 of 24 layers); 19e musicgen-medium
+    trained with frontend batches (24 of 48 layers).
     The training kernels at the (2, n) blocks 19a's int8 rounds hand them
     that earlier phases did not."""
     import tempfile
@@ -4898,7 +4932,7 @@ def run_rglru_frontend_phase(torch, floor) -> dict:
                                        rg_serve_extra)
     torch.cuda.empty_cache()
     lap("19b")
-    cfg = get_arch("recurrentgemma-2b")
+    cfg = get_arch("recurrentgemma-2b").replace(n_layers=RG_TRAIN["layers"])
     q = dict(RG_TRAIN, launches_per_step={
         "flash_attention": 2 * RG_TRAIN["clients"]
         * kernel_layers(cfg, "flash_attention"),
@@ -4920,7 +4954,8 @@ def run_rglru_frontend_phase(torch, floor) -> dict:
                                         vlm_serve_extra)
     torch.cuda.empty_cache()
     lap("19d")
-    cfg = get_arch("musicgen-medium")
+    cfg = get_arch("musicgen-medium").replace(
+        n_layers=MUSICGEN_TRAIN["layers"])
     q = dict(MUSICGEN_TRAIN, launches_per_step={
         "flash_attention": 2 * MUSICGEN_TRAIN["clients"] * cfg.n_layers,
         "fused_sgd_update": MUSICGEN_TRAIN["clients"]})
@@ -5387,6 +5422,299 @@ def run_mesh_phase(torch, dev="cuda:0") -> dict:
     return out
 
 
+# phase 22: the five user examples (``examples_torch/``), each script's
+# sections on the card at its own widths, their gradient steps, stages,
+# rounds and local steps cut for the script's time (each cut logged).
+# The optimum of the three logreg examples: 1,000 of its 4,000 gradient
+# steps (a host-bound 2 ms a step on the card)
+EXAMPLE_GD_STEPS = 1000
+# quickstart's runs, held against the same sections on the CPU
+EXAMPLE_QS_CUTS = {"sync": {"max_rounds": 64}, "local": {"max_rounds": 32},
+                   "stl_sc": {"n_stages": 1}}
+# the gaps past the script's own target (1e-4, which the cut runs do not
+# reach) at which the card's and the CPU's rounds to target are compared
+EXAMPLE_GAPS = (3e-1, 1e-1, 3e-2, 1e-2, 3e-3, 1e-3)
+# hierarchical_pods: the simulator comparison at 1 of its 8 stages, the
+# driver section at 2 of its 4
+EXAMPLE_HP_STAGES, EXAMPLE_HP_DRIVER_STAGES = 1, 2
+# federated_noniid: its three algorithms cut as quickstart's; each reducer
+# at 1 of 14 stages; the straggler runs at 32 rounds (merges when async);
+# the MLP's blocking and streaming runs at 1 of 2 stages
+EXAMPLE_FED_CUTS = EXAMPLE_QS_CUTS
+EXAMPLE_FED_REDUCER_STAGES = 1
+EXAMPLE_FED_STRAGGLER_CUTS = {"local": {"max_rounds": 32},
+                              "stl_sc": {"max_rounds": 32}}
+EXAMPLE_FED_STREAM_STAGES = 1
+# train_llm_stl --hundred-m: 160 of its 200 local steps (the script checks
+# that the loss falls from 150; at 150 the third stage has run 6 steps)
+EXAMPLE_LM_STEPS = 160
+EXAMPLE_KERNELS = TRAIN_KERNELS + ("flash_attention",)
+
+
+def example_optimum(mod, prob, label):
+    """An example's ``optimum`` section at ``EXAMPLE_GD_STEPS`` steps."""
+    log(f"[cut] phase 22: {label} optimum, {EXAMPLE_GD_STEPS} of "
+        f"{mod.GD_STEPS} gradient steps")
+    return mod.optimum(prob, steps=EXAMPLE_GD_STEPS)
+
+
+def load_example(name: str):
+    """``examples_torch/<name>.py`` as a module (its ``main`` not run)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", ROOT / "examples_torch" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def cut_runs(label: str, runs, cuts, max_rounds: int):
+    """An example's (name, kw) table with ``cuts`` applied, each cut
+    logged: a list of (name, kw, max_rounds)."""
+    out = []
+    for name, kw in runs:
+        cut = cuts[name]
+        n = cut.get("n_stages", kw["n_stages"])
+        if "n_stages" in cut:
+            log_cut("phase 22", f"{label} {name}", n, kw["n_stages"])
+        if "max_rounds" in cut:
+            log(f"[cut] phase 22: {label} {name}: {cut['max_rounds']} of "
+                f"its rounds")
+        out.append((name, dict(kw, n_stages=n),
+                    cut.get("max_rounds", max_rounds)))
+    return out
+
+
+def same_rounds_to_target(label, hists, fstars, gaps, eval_every) -> dict:
+    """Rounds to each gap on the card and on the CPU: equal, or one eval
+    interval apart where both runs' values at the earlier of the two
+    records lie within 1e-6 of the target. Returns per gap both rounds
+    and the margin: the least distance to the target of the records at
+    or one interval before either crossing."""
+    from repro_torch.core.simulate import rounds_to_target
+
+    out = {}
+    for gap in gaps:
+        r = {d: rounds_to_target(h, fstars[d] + gap) for d, h in hists.items()}
+        near = [abs(rec.value - fstars[d] - gap) for d, h in hists.items()
+                for rec in h for x in r.values() if x is not None
+                and 0 <= x - rec.round <= eval_every]
+        out[str(gap)] = {**r, "margin": min(near) if near else None}
+        a, b = r.values()
+        if a == b:
+            continue
+        first = min(x for x in (a, b) if x is not None)
+        at = [abs(rec.value - fstars[d] - gap) for d, h in hists.items()
+              for rec in h if rec.round == first]
+        if None in (a, b) or abs(a - b) != eval_every or max(at) > 1e-6:
+            raise AssertionError(f"{label}: rounds to gap {gap}: {r}, "
+                                 f"values at round {first} {at}")
+    return out
+
+
+def example_quickstart(torch, dev) -> dict:
+    """22a: quickstart's optimum and its three runs on the card and on the
+    CPU from the same draws (``HostKey``): f* within 1e-6 relative, the
+    histories within 1e-4, rounds to each gap as ``same_rounds_to_target``
+    holds them."""
+    from repro_torch.utils.rng import TorchKey
+
+    qs = load_example("quickstart")
+    sides = {"card": dev, "cpu": torch.device("cpu")}
+    probs = {s: qs.problem(d) for s, d in sides.items()}
+    fstar, out = {}, {"runs": {}, "optimum_s": {}}
+    for s in sides:
+        t0 = time.monotonic()
+        fstar[s] = example_optimum(qs, probs[s], f"quickstart ({s})")
+        out["optimum_s"][s] = time.monotonic() - t0
+    out["fstar"] = fstar
+    log(f"[examples] 22a quickstart f* card {fstar['card']!r}, CPU "
+        f"{fstar['cpu']!r} ({EXAMPLE_GD_STEPS} float32 gradient steps)")
+    if abs(fstar["card"] - fstar["cpu"]) > 1e-6 * abs(fstar["cpu"]):
+        raise AssertionError(f"phase 22a: f* {fstar}")
+    for algo, kw, max_rounds in cut_runs("quickstart", qs.ALGOS,
+                                         EXAMPLE_QS_CUTS, qs.MAX_ROUNDS):
+        got = {s: qs.compare(probs[s], fstar[s], [(algo, kw)],
+                             max_rounds=max_rounds, device=d,
+                             rng=HostKey(TorchKey(0), d))[algo]
+               for s, d in sides.items()}
+        hists = {s: g[0] for s, g in got.items()}
+        if [(r.round, r.iteration) for r in hists["card"]] != \
+                [(r.round, r.iteration) for r in hists["cpu"]]:
+            raise AssertionError(f"phase 22a {algo}: the records differ")
+        err = max(abs(a.value - b.value)
+                  for a, b in zip(hists["card"], hists["cpu"]))
+        rounds = same_rounds_to_target(f"phase 22a {algo}", hists, fstar,
+                                       (qs.TARGET,) + EXAMPLE_GAPS,
+                                       qs.EVAL_EVERY)
+        wall, iters = got["card"][2], hists["card"][-1].iteration
+        log(f"[examples] 22a quickstart {algo}: {len(hists['card'])} "
+            f"records, card vs CPU max |diff| {err:.3g} (tol 1e-4); rounds "
+            f"to gap (card / CPU; margin): " + ", ".join(
+                f"{g}: {m['card']} / {m['cpu']}; "
+                + ("-" if m["margin"] is None else f"{m['margin']:.3g}")
+                for g, m in rounds.items())
+            + f"; {iters} local steps in {wall:.3f} s on the card, "
+            f"{1e3 * wall / iters:.4f} ms a step")
+        if not err <= 1e-4:
+            raise AssertionError(f"phase 22a {algo}: card vs CPU {err}")
+        out["runs"][algo] = {"max_abs_diff": err, "rounds_to_gap": rounds,
+                             "iters": iters, "wall_s": wall,
+                             "ms_per_step": 1e3 * wall / iters}
+    return out
+
+
+def example_pods(torch, dev) -> dict:
+    """22b: hierarchical_pods on the card — the three topologies' summaries,
+    then the driver section, whose own asserts hold the executed byte
+    ledger to the tree totals (both cut in stages)."""
+    hp = load_example("hierarchical_pods")
+    prob = hp.problem(dev)
+    fstar = example_optimum(hp, prob, "hierarchical_pods")
+    log_cut("phase 22b", "hierarchical_pods simulator comparison",
+            EXAMPLE_HP_STAGES, hp.SIM_SCHEDULE["n_stages"])
+    sims = hp.compare(prob, fstar, schedule=dict(
+        hp.SIM_SCHEDULE, n_stages=EXAMPLE_HP_STAGES), device=dev)
+    log_cut("phase 22b", "hierarchical_pods driver",
+            EXAMPLE_HP_DRIVER_STAGES, hp.DRIVER_SCHEDULE["n_stages"])
+    ds, gap = hp.driver(prob, fstar, dict(
+        hp.DRIVER_SCHEDULE, n_stages=EXAMPLE_HP_DRIVER_STAGES), device=dev)
+    out = {"fstar": fstar, "summaries": {n: s for n, (_, s) in sims.items()},
+           "final_gaps": {n: h[-1].value - fstar
+                          for n, (h, _) in sims.items()},
+           "driver": {"rounds": ds.rounds_total, "iters": ds.iters_total,
+                      "comm_bytes": ds.comm_bytes_total,
+                      "leaf_ledger": ds.leaf_ledger, "gap": gap}}
+    for name, (hist, _) in sims.items():
+        check_objective(f"phase 22b {name}", [h.value for h in hist])
+    return out
+
+
+def example_noniid(torch, dev) -> dict:
+    """22c: federated_noniid on the card — ζ and the theory k₁, the three
+    algorithms, the three reducers with their comm summaries, the
+    straggler runs and the MLP's uploads; streaming bit-equal to blocking
+    (every history value and the final parameters)."""
+    import dataclasses
+
+    from repro_torch.models import mlp
+    from repro_torch.utils.tree import tree_leaves
+
+    fed = load_example("federated_noniid")
+    prob = fed.problem(dev)
+    zeta, k1_hom, k1_non = fed.heterogeneity(prob)
+    fstar = example_optimum(fed, prob, "federated_noniid")
+    out = {"zeta": zeta, "theory_k1": [k1_hom, k1_non], "fstar": fstar}
+    runs = cut_runs("federated_noniid", fed.ALGOS, EXAMPLE_FED_CUTS,
+                    fed.MAX_ROUNDS)
+    out["rounds_to_target"] = {}
+    for algo, kw, max_rounds in runs:
+        hist, r = fed.compare(prob, fstar, [(algo, kw)],
+                              max_rounds=max_rounds, device=dev)[algo]
+        check_objective(f"phase 22c {algo}", [h.value for h in hist])
+        out["rounds_to_target"][algo] = r
+    log_cut("phase 22c", "federated_noniid reducers",
+            EXAMPLE_FED_REDUCER_STAGES, fed.REDUCER_SCHEDULE["n_stages"])
+    reds = fed.reducers(prob, fstar, schedule=dict(
+        fed.REDUCER_SCHEDULE, n_stages=EXAMPLE_FED_REDUCER_STAGES),
+        device=dev)
+    out["reducers"] = {r: s for r, (_, s) in reds.items()}
+    strag = {}
+    for algo, kw, max_rounds in cut_runs(
+            "federated_noniid stragglers", fed.STRAGGLER_RUNS,
+            EXAMPLE_FED_STRAGGLER_CUTS, None):
+        strag.update(fed.stragglers(prob, fstar, [(algo, kw)],
+                                    max_rounds=max_rounds, device=dev))
+    out["stragglers"] = {f"{a} {m}": {"rounds": r.rounds,
+                                      "wall_clock_s": r.wall_clock_s}
+                         for (a, m), r in strag.items()}
+    log_cut("phase 22c", "federated_noniid streaming",
+            EXAMPLE_FED_STREAM_STAGES, fed.STREAM_CFG.n_stages)
+    res = fed.streaming(prob, mlp.init_params(fed.D, seed=42, device=dev),
+                        dataclasses.replace(
+                            fed.STREAM_CFG,
+                            n_stages=EXAMPLE_FED_STREAM_STAGES), device=dev)
+    b, s = res["blocking"], res["streaming"]
+    equal = [r.value for r in b.history] == [r.value for r in s.history] \
+        and all(torch.equal(x, y) for x, y in zip(tree_leaves(b.params),
+                                                   tree_leaves(s.params)))
+    log(f"[examples] 22c streaming against blocking on the card: "
+        f"{'bit-equal' if equal else 'DIFFERENT'} over "
+        f"{len(b.history)} records and {len(tree_leaves(b.params))} leaves;"
+        f" modeled wall {b.wall_clock_s!r} / {s.wall_clock_s!r} s")
+    if not equal or not s.wall_clock_s < b.wall_clock_s:
+        raise AssertionError("phase 22c: streaming against blocking")
+    out["streaming"] = {"bit_equal": equal, "records": len(b.history),
+                        "wall_clock_s": [b.wall_clock_s, s.wall_clock_s]}
+    return out
+
+
+def example_serve(torch, dev) -> dict:
+    """22d: serve_batched whole on the card — its own check holds request
+    0's tokens to ``greedy_decode`` on the card."""
+    sb = load_example("serve_batched")
+    cfg, params = sb.model(dev)
+    engine, requests, report = sb.serve(cfg, params)
+    sb.check_request0(cfg, params, requests, report)
+    return {"completed": len(report.completed), "n_steps": report.n_steps,
+            "n_prefills": report.n_prefills,
+            "measured_wall_s": report.measured_wall_s,
+            "measured_tok_s": report.measured_tok_s,
+            "decode_step_s_modeled": engine.decode_step_s}
+
+
+def example_train(torch, dev) -> dict:
+    """22e: train_llm_stl --hundred-m at ``EXAMPLE_LM_STEPS`` of its 200
+    local steps; from 150 the script's own check holds the last stage's
+    mean loss below the first's."""
+    tl = load_example("train_llm_stl")
+    log(f"[cut] phase 22e: train_llm_stl --hundred-m at {EXAMPLE_LM_STEPS} "
+        f"of its 200 local steps")
+    cfg, batch, seq = tl.model_config(hundred_m=True)
+    state = tl.init(cfg, 4, device=dev)   # the script's --clients
+    ds, dt = tl.train(cfg, state, batch, seq, EXAMPLE_LM_STEPS, device=dev)
+    losses = [r.mean_loss for r in ds.results]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"phase 22e: stage losses {losses}")
+    return {"iters": ds.iters_total, "rounds": ds.rounds_total,
+            "wall_s": dt, "tok_s": ds.iters_total * 4 * batch * seq / dt,
+            "stage_losses": losses}
+
+
+def run_examples_phase(torch, dev="cuda:0") -> dict:
+    """Phase 22: the five examples' sections on the card (22a-e), each
+    example's kernel launches counted from 0 over its card runs (the CPU
+    runs of 22a launch none)."""
+    from repro_torch import kernels
+
+    dev = torch.device(dev)
+    out, launches = {}, dict.fromkeys(EXAMPLE_KERNELS, 0)
+    for name, run in (("quickstart", example_quickstart),
+                      ("hierarchical_pods", example_pods),
+                      ("federated_noniid", example_noniid),
+                      ("serve_batched", example_serve),
+                      ("train_llm_stl", example_train)):
+        t0 = time.monotonic()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out[name] = run(torch, dev)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        out[name].update(launches=counts, seconds=time.monotonic() - t0)
+        for k in EXAMPLE_KERNELS:
+            launches[k] += counts[k]
+        log(f"[examples] {name}: {out[name]['seconds']:.1f} s, launches "
+            f"{counts}")
+        torch.cuda.empty_cache()
+    log(f"[examples] phase 22 launches {launches}")
+    missing = [k for k, v in launches.items() if not v > 0]
+    if missing:
+        raise AssertionError(f"phase 22: {missing} never launched")
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -5520,7 +5848,7 @@ def main() -> int:
     log(f"[time] phase 16: {time.monotonic() - t0:.1f} s")
 
     # phase 17: Mamba2 training — the SSD Function's gradients on the card,
-    # mamba2 SMOKE card against CPU, mamba2-2.7b at full width (16 of 64
+    # mamba2 SMOKE card against CPU, mamba2-2.7b at full width (8 of 64
     # layers) through launch/train, then serving its checkpoint
     t0 = time.monotonic()
     m2 = run_mamba2_phase(torch)
@@ -5557,8 +5885,9 @@ def main() -> int:
 
     # phase 19: RG-LRU and the frontend archs — SMOKE card against CPU
     # (serving, a used slot, training), flash at the new shapes,
-    # recurrentgemma-2b served and trained at full width and depth (and its
-    # checkpoint served), internvl2-2b served with frontend requests,
+    # recurrentgemma-2b served and trained at full width, half its depth
+    # (and its checkpoint served), internvl2-2b served with frontend
+    # requests (half its depth),
     # musicgen-medium trained with frontend batches
     t0 = time.monotonic()
     rg = run_rglru_frontend_phase(torch, floor)
@@ -5584,7 +5913,14 @@ def main() -> int:
     for k in TRAIN_KERNELS + ("flash_attention",):
         launches[k] += mesh_run["launches"][k]
     log(f"[time] phase 21: {time.monotonic() - t0:.1f} s")
-    log(f"[time] phases 2-21: {time.monotonic() - t_start:.1f} s")
+
+    # phase 22: the five user examples (examples_torch/) on the card
+    t0 = time.monotonic()
+    examples = run_examples_phase(torch)
+    for k in EXAMPLE_KERNELS:
+        launches[k] += examples["launches"][k]
+    log(f"[time] phase 22: {time.monotonic() - t0:.1f} s")
+    log(f"[time] phases 2-22: {time.monotonic() - t_start:.1f} s")
 
     # phase 20: summary
     meta = {
@@ -5611,6 +5947,7 @@ def main() -> int:
                     "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                     "library_ms": r["library_ms"],
                     "launch_floor_ms": floor,
+                    "examples_launches": examples["launches"][kname],
                     "shape": [N_CLIENTS, 784],
                     "large": {"shape": list(shapes["large"]),
                               "ms": big["ms"], "plain_ms": big["plain_ms"],
@@ -5663,6 +6000,7 @@ def main() -> int:
                 "shapes": {**flash, **mm["flash"], **rg["flash"]},
                 "train": flash_grad,
                 "mla_shapes": mm["mla_flash"],
+                "examples_launches": examples["launches"]["flash_attention"],
                 "train_launches": lm["launches"]["flash_attention"]
                 + sum(v["flash_attention"]
                       for v in lm_check["launches"].values()),
@@ -5707,7 +6045,7 @@ def main() -> int:
                     "runtime_async": runtime_async, "hierarchical": hier,
                     "cnn": cnn_run, "lm_train": lm, "mamba2": m2,
                     "moe_mla": mm, "rglru_frontend": rg, "mesh": mesh_run,
-                    "card": smi}))
+                    "examples": examples, "card": smi}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -11,6 +11,8 @@ package see the same minibatches and the same stochastic-rounding bits.
 from __future__ import annotations
 
 import functools
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -66,6 +68,38 @@ def bits_i32(bits_u32: np.ndarray) -> torch.Tensor:
 
 def to_numpy_tree(tree):
     return jax.tree.map(np.asarray, tree)
+
+
+def close_histories(got, want, tol):
+    """Two (round, iteration, value) histories: the same records, values
+    within ``tol`` absolute."""
+    assert [(r.round, r.iteration) for r in got] == \
+        [(r.round, r.iteration) for r in want]
+    np.testing.assert_allclose([r.value for r in got],
+                               [r.value for r in want], atol=tol, rtol=0)
+
+
+def same_rounds_to_target(got, want, fstar, gaps):
+    """The rounds at which each history first reaches ``fstar + gap``
+    are equal for every gap, and at least one gap is reached."""
+    from repro_torch.core.simulate import rounds_to_target
+
+    reached = [rounds_to_target(want, fstar + g) for g in gaps]
+    assert [rounds_to_target(got, fstar + g) for g in gaps] == reached
+    assert any(r is not None for r in reached)
+
+
+EXAMPLES = Path(__file__).resolve().parents[1] / "examples_torch"
+
+
+def load_example(name: str):
+    """Import ``examples_torch/<name>.py`` as a module (its ``main`` does
+    not run: each script runs only under ``__main__``)."""
+    spec = importlib.util.spec_from_file_location(
+        f"examples_torch_{name}", EXAMPLES / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 

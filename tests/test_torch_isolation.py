@@ -1,10 +1,12 @@
 """The port never touches JAX or the JAX package.
 
 Three checks: no ``jax`` / ``repro`` import anywhere in the port's
-sources (or in ``chip_smoke.py`` and ``tools/torch_bench_diff.py``); a
+sources (or in ``chip_smoke.py``, ``tools/torch_bench_diff.py`` and the
+ported examples under ``examples_torch/``); a
 fresh interpreter that imports every port module ends with no ``jax*`` or ``repro.*`` module loaded; and the
 port's entry points (``core.simulate.run``, ``runtime.run``, the CNN
-initializers, the training builders and launcher) refuse to run without CUDA unless asked for the CPU.
+initializers, the training builders and launcher, each example's
+``main``) refuse to run without CUDA unless asked for the CPU.
 """
 import ast
 import os
@@ -16,8 +18,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from jax_replay import load_example
+
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+EXAMPLES = sorted((ROOT / "examples_torch").glob("*.py"))
 
 
 def _port_modules():
@@ -46,8 +51,10 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_repro_import_in_port_sources():
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
                                            ROOT / "tools" /
-                                           "torch_bench_diff.py"]
+                                           "torch_bench_diff.py"] + EXAMPLES
     assert len(files) > 30
+    assert [f.stem for f in EXAMPLES] == sorted(
+        f.stem for f in (ROOT / "examples").glob("*.py"))
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
@@ -160,3 +167,15 @@ def test_mesh_entry_points_need_cuda():
             mesh.make_fake_mesh((2, 2), ("data", "model"))
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("path", EXAMPLES, ids=lambda p: p.stem)
+def test_example_main_needs_cuda(path):
+    """Each ported example runs on CUDA by default and raises without it,
+    ``--device cuda`` as well: no silent CPU run."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the example would run")
+    mod = load_example(path.stem)
+    for argv in ([], ["--device", "cuda"]):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(argv)
