@@ -3414,7 +3414,7 @@ def profile_lm(torch, cfg, dev, state, tcfg, q) -> dict:
     """Phase 16c's profile: torch.profiler over ``q["profile_steps"]``
     local steps and their round, after the run. Device time by kind: the
     cuBLAS GEMMs (the plain backward's products included), the flash
-    forward, the plain attention backward (its record_function range),
+    forward, the plain attention backward (its ``obs/trace.layer`` range),
     the fused update and the loss's log-softmax."""
     from repro_torch.core import local_sgd as LS
     from repro_torch.launch.train import synthetic_batches
@@ -3465,8 +3465,9 @@ GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
 def device_ms_by_kind(torch, prof, n: int, kinds: dict, ranges: dict):
     """A torch.profiler session's device time a step, over ``n`` steps:
     for each kind, the kernels whose names hold one of its patterns; for
-    each ``ranges`` entry, the kernels launched inside that
-    record_function range (its device time, read on the host-side range).
+    each ``ranges`` entry, the kernels launched inside that host range
+    (an ``obs/trace.layer`` range of the program or a ``record_function``
+    range: its device time, read on the host-side range).
     With the kernels a step, their device ms a step and the 8 largest
     kernels as log lines (``top``); None if no device event was traced."""
     avg = prof.key_averages()
@@ -4289,9 +4290,10 @@ def moe_step_work(cfg, q) -> dict:
 
 def range_device_ms(torch, prof, names, n: int, outside=None) -> float:
     """Device ms a step of the kernels launched inside the host ranges
-    named in ``names`` (record_function ranges, or the autograd engine's
-    ``evaluate_function`` ranges of backward nodes), leaving out those
-    nested in a range named ``outside``."""
+    named in ``names`` (``obs/trace.layer`` ranges, record_function
+    ranges, or the autograd engine's ``evaluate_function`` ranges of
+    backward nodes), leaving out those nested in a range named
+    ``outside``."""
     cuda = torch.autograd.DeviceType.CUDA
     total = 0.0
     for e in prof.events():

@@ -28,6 +28,11 @@ reduces the reference's leaves.
 Unlike the reference's pure functions, both steps update the state's
 tensors in place and return the state.
 
+A client's step runs in three profiler ranges (``obs/trace.layer``):
+``local_sgd.forward`` (the loss), ``local_sgd.backward``
+(``torch.autograd.grad``, the remat recompute inside it) and
+``local_sgd.update`` (the optimizer's update).
+
 On a device mesh (``build_train_steps(cfg, mesh)``, a ``DeviceMesh`` from
 ``launch/mesh.py``) the state's leaves are DTensors placed by
 ``state_shardings`` (``place_state``): the client dim split over the
@@ -58,6 +63,7 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.core.simulate import _copy_broadcast_, resolve_device
 from repro_torch.engine.topology import Hierarchical
 from repro_torch.models import transformer as TF
+from repro_torch.obs.trace import layer
 from repro_torch.optim import make_optimizer
 from repro_torch.sharding.rules import (NamedSharding, P, axis_sizes,
                                         distribute, feasible_specs,
@@ -481,13 +487,19 @@ def build_train_steps(cfg: ArchConfig, mesh_or_device=None, *,
         # a pod client's batch shards split over the mesh's `data` axis
         n_data = (axis_sizes(mesh).get("data", 1)
                   if pod_clients and "data" in rep_axes else 1)
-    _, opt_update = make_optimizer(optimizer, momentum, weight_decay)
+    _, update = make_optimizer(optimizer, momentum, weight_decay)
+
+    def opt_update(params, grads, opt_state, eta):
+        with layer("local_sgd.update"):
+            return update(params, grads, opt_state, eta)
 
     def value_and_grad(params, batch):
         leaves, treedef = tree_flatten(params)
-        loss = loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True,
-                                    materialize_grads=True)
+        with layer("local_sgd.forward"):
+            loss = loss_fn(params, cfg, batch)
+        with layer("local_sgd.backward"):
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                        materialize_grads=True)
         return loss.detach(), treedef.unflatten(list(grads))
 
     def microbatches(batch):
@@ -582,9 +594,12 @@ def build_train_steps(cfg: ArchConfig, mesh_or_device=None, *,
             return from_local(x.contiguous(), rep_mesh, bpl, shape)
 
         def one(b):
-            loss = loss_fn(treedef.unflatten(live), cfg, tree_map(wrap, b))
-            grads = torch.autograd.grad(loss, live, allow_unused=True,
-                                        materialize_grads=True)
+            with layer("local_sgd.forward"):
+                loss = loss_fn(treedef.unflatten(live), cfg,
+                               tree_map(wrap, b))
+            with layer("local_sgd.backward"):
+                grads = torch.autograd.grad(loss, live, allow_unused=True,
+                                            materialize_grads=True)
             return loss.detach().full_tensor(), treedef.unflatten([
                 g.redistribute(rep_mesh, pl).to_local()
                 for g, (pl, _) in zip(grads, placements)])

@@ -26,7 +26,7 @@ from repro_torch.core.simulate import _gather_batch
 from repro_torch.engine.algorithm import get_algorithm
 from repro_torch.engine.engine import Engine, StageStatus
 from repro_torch.engine.topology import Hierarchical, Star, StreamingStar
-from repro_torch.obs.trace import CAT_COMM, CAT_COMPUTE
+from repro_torch.obs.trace import CAT_COMM, CAT_COMPUTE, layer
 from repro_torch.utils.logging import get_logger
 from repro_torch.utils.rng import TorchKey
 from repro_torch.utils.tree import (tree_broadcast_leading, tree_leaves,
@@ -100,7 +100,17 @@ class DriverState:
 
 
 class DriverBackend:
-    """Engine backend: a stream of step calls on real batches."""
+    """Engine backend: a stream of step calls on real batches.
+
+    Profiler ranges (``obs/trace.layer``): ``driver.batch`` around each
+    batch drawn from the stream, ``driver.loss_read`` around each step's
+    loss read (the step's one intended host sync), and, from the driver's
+    wall spans, ``driver.local_steps`` and ``driver.reduce``. A ``reduce``
+    span's wall length is the round's enqueue, not its device time: under
+    a ``Tracer`` with the state on CUDA the round is also timed between
+    two CUDA events, and the span gets that as ``device_ms`` after a
+    later loss read has synchronised (or when the run finishes).
+    """
 
     def __init__(self, driver: "StagewiseDriver", ds: DriverState, batches,
                  max_iters: Optional[int]):
@@ -108,6 +118,21 @@ class DriverBackend:
         self.ds = ds
         self.it = iter(batches)
         self.max_iters = max_iters
+        self.rounds_timed = []     # (reduce span, start event, end event)
+
+    def _round_events(self, tracer):
+        """A CUDA event pair for timing a round, where one is wanted."""
+        if not tracer or not tree_leaves(self.ds.state["params"])[0].is_cuda:
+            return None
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    def _read_round_times(self):
+        """Give each timed round's span its ``device_ms``: called after a
+        synchronisation, so its end event has been reached."""
+        for span, e0, e1 in self.rounds_timed:
+            span.set(device_ms=e0.elapsed_time(e1))
+        self.rounds_timed.clear()
 
     def setup(self, engine: Engine):
         params = self.ds.state["params"]
@@ -128,21 +153,31 @@ class DriverBackend:
                              attrs={"s": stage.s, "steps": burst,
                                     "eta": stage.eta}):
                 for _ in range(burst):
-                    batch = next(self.it)
+                    with layer("driver.batch"):
+                        batch = next(self.it)
                     if drv.uses_center:
                         ds.state, m = drv.train_step(ds.state, batch,
                                                      stage.eta, ds.center)
                     else:
                         ds.state, m = drv.train_step(ds.state, batch,
                                                      stage.eta)
-                    losses.append(float(m["loss"]))
+                    with layer("driver.loss_read"):
+                        losses.append(float(m["loss"]))
+                    if self.rounds_timed:
+                        self._read_round_times()
                     done += 1
                     ds.iters_total += 1
                     if self.max_iters and ds.iters_total >= self.max_iters:
                         break
+            events = self._round_events(tracer)
             with tracer.span("reduce", cat=CAT_COMM, track="driver",
-                             attrs=dict(drv.span_attrs, s=stage.s)):
+                             attrs=dict(drv.span_attrs, s=stage.s)) as sp:
+                if events:
+                    events[0].record()
                 ds.state = drv.sync_step(ds.state)
+                if events:
+                    events[1].record()
+                    self.rounds_timed.append((sp, *events))
             status.rounds += 1
             ds.rounds_total += 1
             if self.max_iters and ds.iters_total >= self.max_iters:
@@ -162,6 +197,9 @@ class DriverBackend:
         return status
 
     def finish(self, engine: Engine) -> DriverState:
+        for _, _, e1 in self.rounds_timed:
+            e1.synchronize()
+        self._read_round_times()
         self.ds.comm_bytes_total = engine.report.comm_bytes_total
         self.ds.comm_time_s = engine.report.comm_time_s
         self.ds.leaf_ledger = engine.leaf_ledger()

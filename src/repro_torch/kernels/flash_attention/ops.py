@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels.flash_attention import kernel as K
 from repro_torch.kernels.flash_attention import ref as R
 from repro_torch.kernels.trace import is_fake
+from repro_torch.obs.trace import layer
 
 
 def plain_attention(q, k, v, causal, window, softcap, scale):
@@ -41,18 +42,20 @@ def _route(q, k, v, causal, window, softcap, scale):
 
 class FlashAttention(torch.autograd.Function):
     """forward: the device's route; backward: the plain version
-    recomputed and differentiated (the reference's ``_flash_bwd``)."""
+    recomputed and differentiated (the reference's ``_flash_bwd``). Each
+    runs in its profiler range, ``flash_attention.forward`` (the remat
+    recompute too) and ``flash_attention.backward``."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap, scale):
         ctx.save_for_backward(q, k, v)
         ctx.args = (causal, window, softcap, scale)
-        return _route(q, k, v, causal, window, softcap, scale)
+        with layer("flash_attention.forward"):
+            return _route(q, k, v, causal, window, softcap, scale)
 
     @staticmethod
     def backward(ctx, g):
-        with torch.profiler.record_function("flash_attention.backward"), \
-                torch.enable_grad():
+        with layer("flash_attention.backward"), torch.enable_grad():
             ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
             out = plain_attention(*ins, *ctx.args)
             dq, dk, dv = torch.autograd.grad(out, ins, g)

@@ -20,6 +20,7 @@ import torch
 from repro_torch.kernels.ssd import kernel as K
 from repro_torch.kernels.ssd import ref as R
 from repro_torch.kernels.trace import is_fake
+from repro_torch.obs.trace import layer
 
 
 def plain_ssd(x, dt, A, B, C, chunk, initial_state=None):
@@ -41,7 +42,9 @@ def _route(x, dt, A, B, C, chunk, initial_state):
 
 class SSD(torch.autograd.Function):
     """forward: the device's route; backward: ``plain_ssd`` recomputed from
-    the saved inputs and differentiated, for y and the final state."""
+    the saved inputs and differentiated, for y and the final state. Each
+    runs in its profiler range, ``ssd.forward`` (the remat recompute too)
+    and ``ssd.backward``."""
 
     @staticmethod
     def forward(ctx, x, dt, A, B, C, initial_state, chunk):
@@ -50,7 +53,8 @@ class SSD(torch.autograd.Function):
         # an output the loss does not reach (the final state, in training)
         # gets None, not a zero tensor to differentiate against
         ctx.set_materialize_grads(False)
-        return _route(x, dt, A, B, C, chunk, initial_state)
+        with layer("ssd.forward"):
+            return _route(x, dt, A, B, C, chunk, initial_state)
 
     @staticmethod
     def backward(ctx, gy, gstate):
@@ -61,8 +65,7 @@ class SSD(torch.autograd.Function):
                 if t is not None and ctx.needs_input_grad[i]]
         if not pairs or not want:
             return (*grads, None)
-        with torch.profiler.record_function("ssd.backward"), \
-                torch.enable_grad():
+        with layer("ssd.backward"), torch.enable_grad():
             ins = [None if t is None else t.detach().requires_grad_(
                 ctx.needs_input_grad[i]) for i, t in enumerate(saved)]
             outs = plain_ssd(*ins[:5], ctx.chunk, ins[5])

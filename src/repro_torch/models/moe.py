@@ -17,8 +17,8 @@ dispatch go there, and a dropped assignment's gradient is zero). The
 combine adds a token's k weighted picks in k order, starting from zeros —
 the order of the reference's ``.at[token_of].add`` — with no atomics, so it
 is deterministic on the card. The route, dispatch, expert products and
-combine each run in a ``record_function`` range (``moe.*``) that a
-profile reads.
+combine each run in a profiler range (``moe.*``, ``obs/trace.layer``)
+that a profile reads.
 """
 from __future__ import annotations
 
@@ -26,10 +26,10 @@ from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
-from torch.profiler import record_function
 
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import _normal, apply_mlp, dense_init, init_mlp
+from repro_torch.obs.trace import layer
 from repro_torch.sharding import shard
 
 
@@ -108,14 +108,14 @@ def _moe_rows(params, moe: MoEConfig, x):
     (y (G, T, d), aux (G,))."""
     G, T, d = x.shape
     E, k = moe.n_experts, moe.top_k
-    with record_function("moe.route"):
+    with layer("moe.route"):
         r = route(params, moe, x)
     C = r.capacity
     EC = E * C
 
     # dispatch: each assignment's token row into its slot of its pool's
     # (E·C + 1, d) buffer; every dropped assignment writes the sink row
-    with record_function("moe.dispatch"):
+    with layer("moe.dispatch"):
         rows = x[:, :, None].expand(G, T, k, d).reshape(G * T * k, d)
         base = torch.arange(G, device=x.device)[:, None] * (EC + 1)
         buf = torch.index_put(x.new_zeros(G * (EC + 1), d),
@@ -123,12 +123,12 @@ def _moe_rows(params, moe: MoEConfig, x):
         buf = buf.view(G, EC + 1, d)[:, :EC].reshape(G, E, C, d)
         buf = buf.transpose(0, 1).reshape(E, G * C, d)
 
-    with record_function("moe.experts"):
+    with layer("moe.experts"):
         out = _experts(params, buf)                         # (E, G·C, d)
 
     # combine: each assignment's slot output, weighted by its gate in the
     # activation type, a token's k picks added in k order from zeros
-    with record_function("moe.combine"):
+    with layer("moe.combine"):
         out = out.reshape(E, G, C, d).transpose(0, 1).reshape(G, EC, d)
         src = r.slot.clamp_max(EC - 1)
         picked = torch.gather(out, 1, src[..., None].expand(G, T * k, d))

@@ -17,9 +17,9 @@ reports the skew:
     shapes fitting in cache);
   * ``emit_spans()`` — one ``profile.<name>`` span per measured call on
     the **wall** clock carrying both ``modeled_s`` and ``measured_s``
-    attrs. Wall spans are excluded from the determinism fingerprints by
-    construction (``Span.key()``), so measured time still never leaks
-    into the modeled/virtual ledgers.
+    attrs. A wall span's timestamps and measured attrs are left out of
+    the determinism fingerprints by construction (``Span.key()``), so
+    measured time still never leaks into the modeled/virtual ledgers.
 
 Surfaced by ``launch/train.py --profile`` (train/sync steps against the
 DeviceModel roofline and the topology's α–β round price) and
@@ -30,13 +30,12 @@ from __future__ import annotations
 
 import functools
 import os
-import time
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Union
 
 import torch
 
-from repro_torch.obs.trace import CAT_COMPUTE, WALL
+from repro_torch.obs.trace import CAT_COMPUTE, WALL, wall_now
 from repro_torch.utils.logging import RUN_ID, get_logger
 from repro_torch.utils.tree import tree_leaves
 
@@ -63,7 +62,7 @@ class StepTiming:
     name: str
     modeled_s: float           # the clock-domain price of this call
     measured_s: float          # host seconds, synchronised with the card
-    t0: float                  # time.monotonic() at call start
+    t0: float                  # wall_now() at call start
     t1: float
     attrs: Dict[str, Any] = field(default_factory=dict)
 
@@ -145,10 +144,10 @@ class ProfileSession:
 
     def measure(self, fn: Callable, *args, **kwargs):
         """Call ``fn`` and wait until its outputs are ready; returns
-        ``(out, t0, t1)`` on ``time.monotonic()``."""
-        t0 = time.monotonic()
+        ``(out, t0, t1)`` on ``wall_now()``, the profiler's clock."""
+        t0 = wall_now()
         out = _block_until_ready(fn(*args, **kwargs))
-        return out, t0, time.monotonic()
+        return out, t0, wall_now()
 
     def record(self, name: str, modeled_s: float, measured_s: float,
                t0: float = 0.0, t1: float = 0.0, **attrs):

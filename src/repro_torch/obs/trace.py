@@ -3,7 +3,8 @@
 A ``Tracer`` records *spans*: named, attributed intervals on one of three
 clock domains, nested into a tree by a begin/end stack:
 
-  wall      measured ``time.monotonic()`` seconds (context-manager spans —
+  wall      measured seconds on ``wall_now()``, the clock the torch
+            profiler stamps its events with (context-manager spans —
             stage execution, jit chunk calls, sync-step calls);
   virtual   the discrete-event runtime's modeled clock
             (``runtime.clock.Clock``) — client compute windows, uploads,
@@ -21,10 +22,22 @@ Zero overhead when disabled: the module-level ``NULL_TRACER`` is falsy and
 every emission site guards with ``if tracer: ...`` — a disabled run
 executes one truthiness check per would-be span and allocates nothing.
 
+Profiler ranges: ``layer(name)`` is the program's one kind of range at a
+layer boundary (``local_sgd.*``, ``ssd.*``, ``flash_attention.*``,
+``moe.*``, ``driver.*``). While a torch profiler records it is a host op
+named ``name`` (``_Range``), so the profile charges the kernels launched
+inside it to ``name``; otherwise it is a shared no-op, one check of the
+profiler's state. A wall span opens ``layer(f"{track}.{name}")`` too, as
+does ``NullTracer.span`` while a profiler records, so the driver's and
+the engine's spans (``driver.local_steps``, ``driver.reduce``,
+``engine.stage``) show in a profile with or without a ``Tracer``, on the
+same timeline as the ``Tracer``'s wall spans.
+
 Determinism: spans on the ``virtual`` and ``modeled`` clocks are a pure
 function of (config, seeds) — same run ⇒ identical span tree including
 timestamps (the property tests/test_obs.py pins); ``wall`` spans keep the
-same tree *structure* but measured durations.
+same tree *structure* but measured durations, and their fingerprint
+leaves out the attrs that hold a measured time (``MEASURED_ATTRS``).
 """
 from __future__ import annotations
 
@@ -32,10 +45,18 @@ import time
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional
 
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
 WALL = "wall"
 VIRTUAL = "virtual"
 MODELED = "modeled"
 CLOCKS = (WALL, VIRTUAL, MODELED)
+
+# attrs of a wall span that hold a measured time, left out of ``Span.key()``
+# with its timestamps: a reduce span's ``device_ms``, a profiled call's
+# ``measured_s`` and the ``skew`` derived from it
+MEASURED_ATTRS = frozenset({"device_ms", "measured_s", "skew"})
 
 # phase categories — the Chrome-trace color key (obs.export maps them)
 CAT_COMPUTE = "compute"   # local SGD steps
@@ -70,12 +91,15 @@ class Span:
 
     def key(self):
         """Structural identity used by the determinism tests: everything
-        except wall-clock timestamps (wall spans compare structurally,
-        virtual/modeled spans timestamp-exactly)."""
-        ts = (None, None) if self.clock == WALL else (self.t0, self.t1)
+        except wall-clock timestamps and a wall span's measured attrs
+        (wall spans compare structurally, virtual/modeled spans
+        timestamp-exactly)."""
+        wall = self.clock == WALL
+        ts = (None, None) if wall else (self.t0, self.t1)
         return (self.id, self.parent, self.name, self.cat, self.track,
                 self.clock) + ts + (tuple(sorted(
-                    (k, v) for k, v in self.attrs.items())),)
+                    (k, v) for k, v in self.attrs.items()
+                    if not (wall and k in MEASURED_ATTRS))),)
 
 
 class _NoopSpan:
@@ -96,6 +120,48 @@ class _NoopSpan:
 _NOOP_SPAN = _NoopSpan()
 
 
+def wall_now() -> float:
+    """Seconds on the wall clock: ``CLOCK_REALTIME``, which the torch
+    profiler stamps its events with, so wall spans and a profile of one
+    run share a timeline."""
+    return time.time_ns() / 1e9
+
+
+class _Range:
+    """A profiler range that takes a span's ``set`` and ignores it.
+
+    A ``RecordFunctionFast`` op, not a ``record_function`` range: a
+    ``record_function`` is a user annotation, and the profiler links a
+    kernel to the innermost op that is not one, so a kernel launched
+    outside any aten op (the port's own kernels, launched through
+    ``ctypes``) would be linked to no range."""
+
+    __slots__ = ("_op",)
+
+    def __init__(self, name: str):
+        self._op = _RecordFunctionFast(name)
+
+    def __enter__(self):
+        self._op.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._op.__exit__(*exc)
+        return False
+
+    def set(self, **attrs):
+        return self
+
+
+def layer(name: str):
+    """A profiler range named ``name`` while a torch profiler records (on
+    this thread, or on the autograd thread a backward runs on), else the
+    shared no-op."""
+    if _profiler_enabled():
+        return _Range(name)
+    return _NOOP_SPAN
+
+
 class NullTracer:
     """Disabled tracer: falsy, allocation-free, every method a no-op.
 
@@ -110,7 +176,11 @@ class NullTracer:
     def __bool__(self) -> bool:
         return False
 
-    def span(self, *a, **kw):
+    def span(self, name, *a, track: str = "engine", **kw):
+        """The no-op; while a profiler records, the ``{track}.{name}``
+        range the same span of a ``Tracer`` would open."""
+        if _profiler_enabled():
+            return _Range(f"{track}.{name}")
         return _NOOP_SPAN
 
     def add(self, *a, **kw):
@@ -130,9 +200,10 @@ NULL_TRACER = NullTracer()
 
 
 class _WallSpan:
-    """Context manager measuring one wall-clock span on a Tracer."""
+    """Context manager measuring one wall-clock span on a Tracer, inside
+    its ``{track}.{name}`` profiler range."""
 
-    __slots__ = ("tracer", "name", "cat", "track", "attrs", "_id", "_t0")
+    __slots__ = ("tracer", "name", "cat", "track", "attrs", "_id", "_range")
 
     def __init__(self, tracer, name, cat, track, attrs):
         self.tracer = tracer
@@ -142,13 +213,15 @@ class _WallSpan:
         self.attrs = attrs
 
     def __enter__(self):
-        self._t0 = time.monotonic()
+        self._range = layer(f"{self.track}.{self.name}")
+        self._range.__enter__()
         self._id = self.tracer._open(self.name, self.cat, self.track,
-                                     WALL, self._t0, self.attrs)
+                                     WALL, wall_now(), self.attrs)
         return self
 
     def __exit__(self, *exc):
-        self.tracer._close(self._id, time.monotonic())
+        self.tracer._close(self._id, wall_now())
+        self._range.__exit__(*exc)
         return False
 
     def set(self, **attrs):

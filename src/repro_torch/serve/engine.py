@@ -51,7 +51,7 @@ from repro_torch.launch.flops import shape_flops
 from repro_torch.models import transformer as TF
 from repro_torch.obs import metrics as obs_metrics
 from repro_torch.obs import series as obs_series
-from repro_torch.obs.trace import CAT_COMPUTE, VIRTUAL
+from repro_torch.obs.trace import CAT_COMPUTE, NULL_TRACER, VIRTUAL
 from repro_torch.launch.mesh import H100_HBM_BW, H100_PEAK_FLOPS_BF16
 from repro_torch.runtime.clock import Clock
 from repro_torch.serve import ledger as serve_ledger
@@ -272,12 +272,9 @@ class ServeEngine:
         occupancy_sum = 0
         tokens_out = 0
         gen_total = 0
-        run_span = tracer.span("serve_run", track="server", attrs={
-            "n_requests": len(requests), "n_slots": self.n_slots}) \
-            if tracer else None
-        if run_span:
-            run_span.__enter__()
-        t_wall0 = time.monotonic()
+        # the run span (a profiler range too, even with no Tracer, while a
+        # profiler records) closes on every exit, an exception included
+        span_src = tracer or NULL_TRACER
 
         def _offer(req: Request):
             rec = RequestRecord(id=req.id, prompt_len=req.prompt_len,
@@ -296,88 +293,90 @@ class ServeEngine:
             sched.release(slot)
             slots[slot] = None
 
-        while events or not sched.idle:
-            # 1. arrivals due now enter admission control
-            while events and events.peek().time <= clock.now:
-                _offer(by_id[events.pop().client])
-            # 2. idle system: jump to the next arrival
-            if sched.idle:
-                if not events:
-                    break
-                clock.advance(events.peek().time)
-                continue
-            # 3. step boundary: admissions join free slots (serialized
-            #    prefills, capped by the interleaving policy)
-            for adm in sched.admit():
-                req, slot = adm.request, adm.slot
-                rec = records[req.id]
-                rec.slot, rec.admit_s = slot, clock.now
-                prompt = torch.as_tensor(req.prompt[None, :],
-                                         dtype=torch.long, device=dev)
-                p_args = (self.params, TF.cache_rows(stacked, slot, slot + 1),
-                          prompt)
-                if req.frontend is not None:
-                    # bfloat16, as the JAX engine hands it over
-                    p_args += (torch.as_tensor(
-                        req.frontend[None]).to(dev, torch.bfloat16),)
-                if profile is not None:
-                    logits, _ = profile.step("serve.prefill",
-                                             self.prefill_s(req),
-                                             self._prefill, *p_args)
-                else:
-                    logits, _ = self._prefill(*p_args)
-                tok1 = torch.argmax(logits[:, -1:], dim=-1)    # (1, 1)
-                del logits
-                toks[slot] = tok1[0]
-                n_prefills += 1
-                clock.advance(clock.now + self.prefill_s(req))
-                rec.first_token_s = clock.now
-                rec.tokens.append(int(tok1[0, 0]))
-                rec.token_times_s.append(clock.now)
-                gen_total += 1
-                s_tok.record(clock.now, float(gen_total))
-                slots[slot] = _SlotState(record=rec, generated=1)
-                if rec.n_out == 1:
-                    _retire(slot, clock.now)
-            # 4. one decode step over the full slot pool
-            active = [i for i, st in enumerate(slots) if st is not None]
-            if active:
-                t0 = clock.now
-                s_queue.record(t0, float(sched.queue_depth))
-                s_occ.record(t0, float(len(active)))
-                if profile is not None:
-                    logits, stacked = profile.step(
-                        "serve.decode_step", self.decode_step_s,
-                        self._decode, self.params, stacked, toks)
-                else:
-                    logits, stacked = self._decode(self.params, stacked,
-                                                   toks)
-                toks = torch.argmax(logits, dim=-1)            # (n_slots, 1)
-                del logits
-                clock.advance(clock.now + self.decode_step_s)
-                n_steps += 1
-                occupancy_sum += len(active)
-                gen_total += len(active)
-                s_tok.record(clock.now, float(gen_total))
-                host_toks = toks.cpu().numpy()
-                for i in active:
-                    st = slots[i]
-                    st.generated += 1
-                    st.record.tokens.append(int(host_toks[i, 0]))
-                    st.record.token_times_s.append(clock.now)
-                    if st.generated >= st.record.n_out:
-                        _retire(i, clock.now)
-                if tracer:
-                    tracer.add("decode_step", t0, clock.now,
-                               cat=CAT_COMPUTE, track="server",
-                               clock=VIRTUAL,
-                               attrs={"active": len(active),
-                                      "queued": sched.queue_depth})
+        with span_src.span("serve_run", track="server", attrs={
+                "n_requests": len(requests),
+                "n_slots": self.n_slots}) as run_span:
+            t_wall0 = time.monotonic()
+            while events or not sched.idle:
+                # 1. arrivals due now enter admission control
+                while events and events.peek().time <= clock.now:
+                    _offer(by_id[events.pop().client])
+                # 2. idle system: jump to the next arrival
+                if sched.idle:
+                    if not events:
+                        break
+                    clock.advance(events.peek().time)
+                    continue
+                # 3. step boundary: admissions join free slots (serialized
+                #    prefills, capped by the interleaving policy)
+                for adm in sched.admit():
+                    req, slot = adm.request, adm.slot
+                    rec = records[req.id]
+                    rec.slot, rec.admit_s = slot, clock.now
+                    prompt = torch.as_tensor(req.prompt[None, :],
+                                             dtype=torch.long, device=dev)
+                    p_args = (self.params,
+                              TF.cache_rows(stacked, slot, slot + 1), prompt)
+                    if req.frontend is not None:
+                        # bfloat16, as the JAX engine hands it over
+                        p_args += (torch.as_tensor(
+                            req.frontend[None]).to(dev, torch.bfloat16),)
+                    if profile is not None:
+                        logits, _ = profile.step("serve.prefill",
+                                                 self.prefill_s(req),
+                                                 self._prefill, *p_args)
+                    else:
+                        logits, _ = self._prefill(*p_args)
+                    tok1 = torch.argmax(logits[:, -1:], dim=-1)    # (1, 1)
+                    del logits
+                    toks[slot] = tok1[0]
+                    n_prefills += 1
+                    clock.advance(clock.now + self.prefill_s(req))
+                    rec.first_token_s = clock.now
+                    rec.tokens.append(int(tok1[0, 0]))
+                    rec.token_times_s.append(clock.now)
+                    gen_total += 1
+                    s_tok.record(clock.now, float(gen_total))
+                    slots[slot] = _SlotState(record=rec, generated=1)
+                    if rec.n_out == 1:
+                        _retire(slot, clock.now)
+                # 4. one decode step over the full slot pool
+                active = [i for i, st in enumerate(slots) if st is not None]
+                if active:
+                    t0 = clock.now
+                    s_queue.record(t0, float(sched.queue_depth))
+                    s_occ.record(t0, float(len(active)))
+                    if profile is not None:
+                        logits, stacked = profile.step(
+                            "serve.decode_step", self.decode_step_s,
+                            self._decode, self.params, stacked, toks)
+                    else:
+                        logits, stacked = self._decode(self.params, stacked,
+                                                       toks)
+                    toks = torch.argmax(logits, dim=-1)        # (n_slots, 1)
+                    del logits
+                    clock.advance(clock.now + self.decode_step_s)
+                    n_steps += 1
+                    occupancy_sum += len(active)
+                    gen_total += len(active)
+                    s_tok.record(clock.now, float(gen_total))
+                    host_toks = toks.cpu().numpy()
+                    for i in active:
+                        st = slots[i]
+                        st.generated += 1
+                        st.record.tokens.append(int(host_toks[i, 0]))
+                        st.record.token_times_s.append(clock.now)
+                        if st.generated >= st.record.n_out:
+                            _retire(i, clock.now)
+                    if tracer:
+                        tracer.add("decode_step", t0, clock.now,
+                                   cat=CAT_COMPUTE, track="server",
+                                   clock=VIRTUAL,
+                                   attrs={"active": len(active),
+                                          "queued": sched.queue_depth})
 
-        measured_wall_s = time.monotonic() - t_wall0
-        if run_span:
+            measured_wall_s = time.monotonic() - t_wall0
             run_span.set(n_steps=n_steps, n_prefills=n_prefills)
-            run_span.__exit__(None, None, None)
 
         recs = [records[r.id] for r in sorted(requests, key=lambda r: r.id)]
         serve_ledger.emit_spans(tracer, recs)

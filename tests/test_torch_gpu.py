@@ -1228,3 +1228,76 @@ def test_update_of_a_recurrentgemma_client_tree_is_two_launches(cuda):
     for p, m, p0, m0, wp, wm in zip(P, M, P0, M0, want_p, want_m):
         assert torch.equal(p[0], p0[0]) and torch.equal(m[0], m0[0])
         assert torch.equal(p[1], wp) and torch.equal(m[1], wm)
+
+
+# ---------------------------------------------------------------------------
+# The profiler ranges of a training step, and the round's device time
+# ---------------------------------------------------------------------------
+
+def _kernels_under(prof, names):
+    """Kernels a range holds: those launched by a host op that started
+    inside one of the range's host spans (as ``bench/trace.py`` charges
+    them)."""
+    cuda = torch.autograd.DeviceType.CUDA
+    events = list(prof.profiler.kineto_results.events())
+    op_start = {e.correlation_id(): e.start_ns() for e in events
+                if e.device_type() != cuda}
+    spans = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in events if e.device_type() != cuda and e.name() in names]
+    launched = [op_start.get(e.linked_correlation_id()) for e in events
+                if e.device_type() == cuda and not e.is_user_annotation()]
+    return {n: sum(1 for t in launched if t is not None and any(
+        n == m and a <= t <= b for m, a, b in spans)) for n in names}
+
+
+@pytest.mark.parametrize("arch", ["mamba2-2.7b", "musicgen-medium"])
+def test_layer_ranges_of_a_step_on_the_card(cuda, arch):
+    """A SMOKE step on the card opens each range as on the CPU, the
+    backward's (the remat recompute, the plain backward) on the autograd
+    engine's device thread, and every range but the feed's and the loss
+    read's holds kernels."""
+    from range_cases import expected_counts, host_ranges, smoke_run
+    from torch.profiler import ProfilerActivity, profile
+
+    want = expected_counts(arch)
+    smoke_run(arch, cuda)      # builds and warms the kernels
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        smoke_run(arch, cuda)
+        torch.cuda.synchronize()
+    got = host_ranges(prof, set(want))
+    assert {n: sum(1 for g in got if g[0] == n) for n in want} == want
+    held = _kernels_under(prof, set(want) - {"driver.batch",
+                                             "driver.loss_read",
+                                             "engine.run", "engine.stage"})
+    assert all(held.values()), held
+
+
+def test_driver_round_span_gets_its_device_time_on_the_card(cuda):
+    """Under a Tracer each ``reduce`` span carries the round's device ms
+    from a CUDA event pair; its wall length is the enqueue."""
+    from range_cases import smoke_run
+
+    from repro_torch.obs.trace import WALL, Tracer
+
+    tr = Tracer()
+    smoke_run("mamba2-2.7b", cuda, tracer=tr, k=1)
+    rounds = tr.find("reduce", clock=WALL)
+    assert len(rounds) == 2
+    assert all(r.attrs["device_ms"] > 0 for r in rounds), rounds
+
+
+def test_traced_driver_fingerprint_is_the_same_on_the_card(cuda):
+    """Two traced runs on the card: their rounds' ``device_ms`` are
+    measured and may differ, their span trees' fingerprints agree."""
+    from range_cases import smoke_run
+
+    from repro_torch.obs.trace import WALL, Tracer
+
+    runs = [Tracer(), Tracer()]
+    for tr in runs:
+        smoke_run("mamba2-2.7b", cuda, tracer=tr, k=1)
+    for tr in runs:
+        assert all(r.attrs["device_ms"] > 0
+                   for r in tr.find("reduce", clock=WALL))
+    assert runs[0].tree_keys() == runs[1].tree_keys()
