@@ -241,9 +241,12 @@ failure propagates, so the script exits non-zero and prints no result.
      (2, 64, 8, 64), N = 32, chunk 64, float32 as ``apply_mamba2`` hands
      them over: the kernel route's y and final state have a grad_fn and
      are held to the plain version as in phase 8; dx, ddt, dA, dB, dC for
-     one fixed dL/dy equal autograd through the plain version bit for
-     bit; timed: the kernel's forward and the plain backward against the
-     backward's bound (``ssd_bwd_work``). (b) mamba2-2.7b SMOKE as 16b
+     one fixed dL/dy, from the backward kernel (one ``ssd_bwd`` launch),
+     within 3e-4 of each gradient's largest magnitude of autograd through
+     the plain version; timed there and at the benchmark cell's shape
+     (4, 1,024, 80, 64): the kernel's forward, the backward kernel and
+     the plain backward against the backward's bound (``ssd_bwd_work``).
+     (b) mamba2-2.7b SMOKE as 16b
      runs qwen3 SMOKE (dense, int8, hier; the same limits; the SSD
      forward twice a layer a client a step), its control with the SSD
      output detached. (c) mamba2-2.7b at full width, its depth cut to 8
@@ -253,11 +256,12 @@ failure propagates, so the script exits non-zero and prints no result.
      --profile-dir --profile-calls 2 --trace --ckpt-out``: 2 clients, 2
      sequences of 1,024 tokens a client a step, stl_sc eta1 0.05, T1 8, k1
      4, 2 stages cut at 16 local steps: the loss finite and falling, the
-     launches (SSD 32 and fused update 2 a local step), the ledger, ms a
+     launches (SSD 32, its backward kernel 16 and fused update 2 a local
+     step), the ledger, ms a
      step against its bound (GEMMs at 989 TFLOP/s, the scan at a third of
      it), peak memory, the skew table, device ms a step by kind over the
-     profiler's 2 traced steps (GEMMs, SSD forward, the plain SSD
-     backward, fused update, log-softmax) and the plain backward's share;
+     profiler's 2 traced steps (GEMMs, SSD forward, the SSD backward,
+     fused update, log-softmax) and the SSD backward's share;
      the trace, its .jsonl and the torch.profiler file checked; one
      client's fused update at the trained state as in 16c. (d) that
      checkpoint behind ``launch/serve.main(["--ckpt", ..., "--trace", ...,
@@ -3002,7 +3006,8 @@ def update_launches(ps, ms, gs) -> int:
 def lm_launches(cfg, ds, clients: int, int8_messages: int) -> dict:
     """The training path's launches: the flash forward twice an attention
     layer a client a local step (the forward and its remat recompute), the
-    SSD forward twice a Mamba2 layer a client a local step, the fused
+    SSD forward twice and its backward kernel once a Mamba2 layer a client
+    a local step, the fused
     update's launches for a client's tree (one, or one a type group: a
     bf16 mamba2 keeps A_log, D and dt_bias in float32) a client a local
     step, one quantize and one dequant_mean a leaf a round for each int8
@@ -3016,6 +3021,7 @@ def lm_launches(cfg, ds, clients: int, int8_messages: int) -> dict:
     per_layer = 2 * clients * ds.iters_total
     return {"flash_attention": per_layer * sum(k in "GL" for k in kinds),
             "ssd": per_layer * kinds.count("M"),
+            "ssd_bwd": clients * ds.iters_total * kinds.count("M"),
             "fused_sgd_update": clients * ds.iters_total
             * update_launches(ps, ms, ps),
             "quantize_kernel": int8_messages * n_leaves * ds.rounds_total,
@@ -3610,6 +3616,9 @@ def run_qwen3_training(torch, dev="cuda:0") -> dict:
 # 2 sequences of 64 tokens, 8 heads of 64, N = 32, chunk 64)
 SSD_TRAIN_CASES = {"mamba2 train": (2, 1024, 80, 64, 1, 128, 256),
                    "mamba2 smoke": (2, 64, 8, 64, 1, 32, 64)}
+# and the benchmark cell's (mamba2-2.7b.train.s1024: 4 rows of 1,024 tokens
+# a client), where 17a times the backward kernel too
+SSD_CELL_CASE = {"mamba2 cell": (4, 1024, 80, 64, 1, 128, 256)}
 # 17c: mamba2-2.7b at full width through launch/train.main, its depth cut
 # to 8 of 64 layers (16 since phase 19 joined the script, 8 since phase 22
 # did: the run's time): 2
@@ -3639,69 +3648,87 @@ def ssd_bwd_work(b, S, H, P, G, N, chunk, init=False):
 
 
 def check_ssd_grad(torch) -> dict:
-    """Phase 17a: the SSD Function on the card at the training shapes. The
-    kernel route's y and final state have a grad_fn and are held to the
-    plain version at phase 8's tolerance; for one fixed dL/dy, dx, ddt,
-    dA, dB and dC equal autograd through the plain version bit for bit.
-    Times: the kernel's forward and the plain backward (the Function's
-    recompute and vector-Jacobian product) against the backward's bound
-    (``ssd_bwd_work``, phase 8's scheme of three bf16 tensor-core products
-    per float32 product, or bytes)."""
+    """Phase 17a: the SSD Function on the card at the training shapes and
+    the benchmark cell's. The kernel route's y and final state have a
+    grad_fn and are held to the plain version at phase 8's tolerance; for
+    one fixed dL/dy, one backward launches the backward kernel once, and
+    its dx, ddt, dA, dB and dC are finite and within 3e-4 of each
+    gradient's largest magnitude of autograd through the plain version.
+    Not bit for bit: the kernel computes the same float32 function in
+    another order over split bf16 products (the Function's backward
+    recomputed the plain version until it had a kernel). Times: the
+    kernel's forward, the backward kernel and the plain backward (the
+    recompute and vector-Jacobian product the Function ran before) against
+    the backward's bound (``ssd_bwd_work``, phase 8's scheme of three bf16
+    tensor-core products per float32 product, or bytes)."""
     from repro_torch.kernels.ssd import kernel as SK
     from repro_torch.kernels.ssd.ops import plain_ssd, ssd
 
     g = torch.Generator(device="cuda:0").manual_seed(5)
     rows = {}
-    for label, (b, S, H, P, G, N, chunk) in SSD_TRAIN_CASES.items():
+    for label, (b, S, H, P, G, N, chunk) in {**SSD_TRAIN_CASES,
+                                              **SSD_CELL_CASE}.items():
         args = ssd_inputs(torch, g, b, S, H, P, G, N, torch.float32)
         gy = torch.randn(args[0].shape, generator=g, device="cuda:0")
         ins = [t.clone().requires_grad_() for t in args]
-        n0 = SK.ssd.launches
+        n0, m0 = SK.ssd.launches, SK.ssd_bwd.launches
         y, st = ssd(*ins, chunk=chunk)
         grads = torch.autograd.grad(y, ins, gy, retain_graph=True)
         pins = [t.clone().requires_grad_() for t in args]
         yp, sp = plain_ssd(*pins, chunk)
         pgrads = torch.autograd.grad(yp, pins, gy)
         torch.cuda.synchronize()
-        if y.grad_fn is None or SK.ssd.launches != n0 + 1:
+        if y.grad_fn is None or SK.ssd.launches != n0 + 1 or \
+                SK.ssd_bwd.launches != m0 + 1:
             raise AssertionError(f"ssd {label}: the kernel route gave no "
-                                 f"grad_fn or launched "
-                                 f"{SK.ssd.launches - n0} times")
-        equal = [torch.equal(a, w) for a, w in zip(grads, pgrads)]
-        if not all(equal):
-            raise AssertionError(f"ssd {label}: dx/ddt/dA/dB/dC bit-equal to "
-                                 f"the plain route: {equal}")
+                                 f"grad_fn or launched the forward "
+                                 f"{SK.ssd.launches - n0} and the backward "
+                                 f"{SK.ssd_bwd.launches - m0} times")
+        gerr = {name: float((a - w).abs().max() / w.abs().max())
+                for name, a, w in zip(("dx", "ddt", "dA", "dB", "dC"),
+                                      grads, pgrads)}
+        if not all(v <= 3e-4 for v in gerr.values()) or \
+                not all(bool(torch.isfinite(a).all()) for a in grads):
+            raise AssertionError(f"ssd {label}: dx/ddt/dA/dB/dC off the "
+                                 f"plain route: {gerr}")
         err, worst = off_by(((y.detach(), yp.detach()),
                              (st.detach(), sp.detach())), 3e-4)
         if not worst <= 1.0:
             raise AssertionError(f"ssd {label}: forward off the plain "
                                  f"version: {err}")
-        del yp, sp, pgrads, pins
+        del yp, sp, pgrads
         big = S >= 1024
         fwd_ms = device_ms(torch, lambda: ssd(*args, chunk=chunk),
                            batch=2 if big else 10,
                            reps=10 if big else TIMING_REPS)
         bwd_ms = device_ms(torch, lambda: torch.autograd.grad(
-            y, ins, gy, retain_graph=True), batch=1 if big else 10,
+            y, ins, gy, retain_graph=True), batch=2 if big else 10,
+            reps=10 if big else TIMING_REPS)
+        plain_ms = device_ms(torch, lambda: torch.autograd.grad(
+            plain_ssd(*pins, chunk)[0], pins, gy), batch=1 if big else 10,
             reps=5 if big else TIMING_REPS)
         n_bytes, n_flops = ssd_bwd_work(b, S, H, P, G, N, chunk)
         bms, by = bound_ms(n_bytes, n_flops, BF16_FLOPS / 3)
         f32_ms = n_flops / F32_FLOPS * 1e3
         rows[label] = {"shape": [b, S, H, P, G, N], "chunk": chunk,
-                       "grads_bit_equal": True, "max_abs_err": err,
-                       "of_tol": worst, "fwd_ms": fwd_ms,
-                       "plain_bwd_ms": bwd_ms, "bwd_bound_ms": bms,
+                       "grads_rel_err": gerr, "max_abs_err": err,
+                       "of_tol": worst, "fwd_ms": fwd_ms, "bwd_ms": bwd_ms,
+                       "plain_bwd_ms": plain_ms, "bwd_bound_ms": bms,
                        "bwd_bound_by": by, "bwd_bytes": n_bytes,
                        "bwd_flops": n_flops, "bwd_f32_cores_ms": f32_ms}
         log(f"[ssd-grad] {label} {(b, S, H, P)} G {G} N {N} chunk {chunk} "
-            f"float32: dx/ddt/dA/dB/dC bit-equal to the plain route; "
-            f"forward max err {err:.3g} ({worst:.3f} of tol 3e-4); kernel "
-            f"forward {fwd_ms:.4f} ms, plain backward {bwd_ms:.3f} ms (its "
-            f"bound {bms:.4f} ms, {by}: {n_flops / 1e9:.2f} GFLOP x 3 bf16 "
+            f"float32: dx/ddt/dA/dB/dC within "
+            f"{max(gerr.values()):.2e} of their largest magnitudes of the "
+            f"plain route (tol 3e-4), one ssd_bwd launch; forward max err "
+            f"{err:.3g} ({worst:.3f} of tol 3e-4); kernel forward "
+            f"{fwd_ms:.4f} ms; backward kernel {bwd_ms:.4f} ms against its "
+            f"bound {bms:.4f} ms ({by}: {n_flops / 1e9:.2f} GFLOP x 3 bf16 "
             f"products, {n_bytes / 1e6:.1f} MB; on the CUDA cores alone "
-            f"{f32_ms:.4f} ms)")
-        del y, st, grads, ins, args, gy
-    torch.cuda.empty_cache()
+            f"{f32_ms:.4f} ms), {100 * bms / bwd_ms:.1f}% of it; plain "
+            f"backward {plain_ms:.3f} ms ({plain_ms / bwd_ms:.1f}x the "
+            f"kernel's)")
+        del y, st, grads, ins, pins, args, gy
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -3863,8 +3890,8 @@ def run_mamba2_training(torch, tmp: Path) -> dict:
             f"running {busy:.1f}% of the window, device "
             f"{kinds['kernel_ms_per_step']:.2f} ms a step; by kind: "
             + ", ".join(f"{k} {v:.3f}" for k, v in by.items())
-            + f" ms a step; the plain SSD backward {100 * share:.1f}% of a "
-            f"traced step (its products are among the GEMMs too)")
+            + f" ms a step; the SSD backward {100 * share:.1f}% of a "
+            f"traced step")
         for line in kinds["top"]:
             log(f"[mamba2-train]   {line}")
     # per-leaf float64 sums of the consensus the checkpoint holds, for 17d

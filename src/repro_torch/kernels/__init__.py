@@ -5,7 +5,8 @@ Every wrapper below counts its launches in a plain integer attribute
 kernels. The CUDA sources live in ``csrc/``; ``build.library()`` builds and
 loads them at first use. The flash-attention and SSD wrappers are reached
 as ``kernels.flash_attention.kernel.flash_attention`` and
-``kernels.ssd.kernel.ssd`` (the subpackages keep their names here).
+``kernels.ssd.kernel.ssd`` / ``ssd_bwd`` (the subpackages keep their names
+here).
 """
 from repro_torch.kernels.flash_attention import kernel as _flash
 from repro_torch.kernels.fused_update.kernel import fused_sgd_update
@@ -14,7 +15,7 @@ from repro_torch.kernels.quantize.kernel import (dequant_mean_kernel,
 from repro_torch.kernels.ssd import kernel as _ssd
 
 KERNELS = (fused_sgd_update, quantize_kernel, dequant_mean_kernel,
-           _flash.flash_attention, _ssd.ssd)
+           _flash.flash_attention, _ssd.ssd, _ssd.ssd_bwd)
 
 
 def launch_counts() -> dict:

@@ -98,9 +98,10 @@ def library() -> ctypes.CDLL:
         lib.repro_flash_attention.argtypes = [vp, vp, vp, vp, *[i32] * 9,
                                               f32, f32, vp]
         lib.repro_ssd.argtypes = [vp] * 11 + [i32] * 8 + [vp]
+        lib.repro_ssd_bwd.argtypes = [vp] * 25 + [i32] * 8 + [vp]
         for fn in (lib.repro_fused_sgd_update, lib.repro_quantize,
                    lib.repro_dequant_mean, lib.repro_flash_attention,
-                   lib.repro_ssd):
+                   lib.repro_ssd, lib.repro_ssd_bwd):
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib

@@ -16,7 +16,12 @@ another order); in bfloat16 the tolerance of
 query row of each head within 1e-2 of its norm). The SSD scan: the JAX
 package's own tolerances (``tests/test_ssd_kernel.py``), 3e-4 in float32
 for y and the final state, 5e-2 for y from bfloat16 inputs (y is rounded
-to bfloat16). The MoE layer and the int8 KV cache, card against CPU: the
+to bfloat16). The SSD backward kernel against autograd through the plain
+version: every gradient within the forward's tolerances of its largest
+magnitude (3e-4 from float32 inputs, 5e-2 from bfloat16), as the CPU
+tests hold gradients that sum the same function in another order (here
+also over split bf16 products: the kernel is not bit-equal to the plain
+backward); a gradient the plain version gives as zero is zero. The MoE layer and the int8 KV cache, card against CPU: the
 same expert assignment and the output within 1e-5 (float32), the cache's
 codes and scales bit-equal; the zero-padded MLA flash call against the
 plain attention on the unpadded head dims, with flash's tolerances.
@@ -954,6 +959,100 @@ def test_flash_gradients_equal_the_plain_route(cuda, dtype, B, S, H, KV, D,
                                    rtol=1e-5)
 
 
+def _grads_close(got, want, tol):
+    """Each gradient within tol of its largest magnitude in the plain
+    version, finite, in its input's type; zero where the plain one is."""
+    for name, a, w in zip(("x", "dt", "A", "B", "C", "initial_state"), got,
+                          want):
+        assert a.dtype == w.dtype and a.shape == w.shape, name
+        assert bool(torch.isfinite(a).all()), name
+        if not w.any():
+            assert not a.any(), name
+            continue
+        err = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err <= tol, f"d{name}: {err}"
+
+
+def _ssd_backward_pair(dev, case, dtype, init, use, strong=False):
+    """The Function's gradients on the card (the backward kernel) and
+    autograd through ``plain_ssd`` on the same inputs, for the loss
+    sum(gy y) + sum(gs state) over the outputs in ``use``; the kernel
+    route's gradients from two backwards, and the launches they took."""
+    from repro_torch.kernels.ssd.ops import plain_ssd, ssd
+
+    b, S, H, P, G, N, chunk = case
+    x, dt, A, B, C = _ssd_inputs(dev, b, S, H, P, G, N, dtype)
+    if strong:
+        dt = dt * 10
+    g = torch.Generator(device=dev).manual_seed(S + 1)
+    base = [x, dt, A, B, C]
+    if init:
+        base.append(torch.randn((b, H, P, N), generator=g, device=dev))
+    gy = torch.randn(x.shape, generator=g, device=dev).to(dtype)
+    gs = torch.randn((b, H, P, N), generator=g, device=dev)
+    pick = lambda y, st: [(o, t) for o, t, u in ((y, gy, "y"), (st, gs, "s"))
+                          if u in use]
+    ins = [t.clone().requires_grad_() for t in base]
+    y, st = ssd(*ins[:5], chunk=chunk, initial_state=ins[5] if init else None)
+    outs, gouts = zip(*pick(y, st))
+    before = SSD.ssd_bwd.launches
+    got = torch.autograd.grad(outs, ins, gouts, retain_graph=True)
+    again = torch.autograd.grad(outs, ins, gouts)
+    torch.cuda.synchronize()
+    launched = SSD.ssd_bwd.launches - before
+    pins = [t.clone().requires_grad_() for t in base]
+    yr, sr = plain_ssd(*pins[:5], chunk, pins[5] if init else None)
+    routs, rgouts = zip(*pick(yr, sr))
+    want = torch.autograd.grad(routs, pins, rgouts, allow_unused=True)
+    # the final state does not reach C: the plain route's gradient is None
+    want = [torch.zeros_like(p) if w is None else w
+            for p, w in zip(pins, want)]
+    return got, again, want, launched
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", SSD_CASES)
+def test_ssd_backward_kernel_matches_plain(cuda, case, dtype, init):
+    """dL/dy into the backward kernel at every forward case: one launch a
+    backward, two backwards bit-equal, the gradients held to the plain
+    version's."""
+    got, again, want, launched = _ssd_backward_pair(cuda, case, dtype, init,
+                                                    ("y",))
+    assert launched == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, want, 3e-4 if dtype == torch.float32 else 5e-2)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("use", [("y",), ("s",), ("y", "s")])
+@pytest.mark.parametrize("case", [(2, 256, 4, 64, 2, 32, 64),
+                                  (1, 319, 2, 64, 1, 128, 256),
+                                  (1, 1, 2, 32, 1, 16, 64)])
+def test_ssd_backward_kernel_takes_either_output_gradient(cuda, case, use,
+                                                          init):
+    """dL/dy alone, dL/d(final state) alone (the kernel gets a zero dy), or
+    both."""
+    got, _, want, launched = _ssd_backward_pair(cuda, case, torch.float32,
+                                                init, use)
+    assert launched == 2
+    _grads_close(got, want, 3e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_backward_kernel_under_a_strong_decay(cuda, dtype):
+    """The strong-decay inputs of the forward's test (exp(cums) about 1e-30
+    within a chunk of 100 rows): every decay a difference of cumulative
+    sums, and M's row and column sums cancelling in d(dt A) as the plain
+    backward's do."""
+    case = (1, 300, 4, 64, 1, 128, 100)
+    got, again, want, launched = _ssd_backward_pair(cuda, case, dtype, False,
+                                                    ("y",), strong=True)
+    assert launched == 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    _grads_close(got, want, 3e-4 if dtype == torch.float32 else 5e-2)
+
+
 @pytest.mark.parametrize("init", [False, True])
 @pytest.mark.parametrize("b,S,H,P,N,chunk", [
     (1, 64, 2, 64, 16, 64),
@@ -962,9 +1061,10 @@ def test_flash_gradients_equal_the_plain_route(cuda, dtype, B, S, H, KV, D,
 def test_ssd_gradients_equal_the_plain_route(cuda, b, S, H, P, N, chunk,
                                              init):
     """The kernel route's y and final state have a grad_fn and their
-    gradients in x, dt, A, B, C and the initial state equal autograd
-    through the plain version bit for bit (both differentiate the same
-    recomputed plain scan); under no_grad the call builds no graph."""
+    gradients in x, dt, A, B, C and the initial state, from the backward
+    kernel (one launch), equal autograd through the plain version within
+    3e-4 of each gradient's largest magnitude; under no_grad the call
+    builds no graph."""
     from repro_torch.kernels.ssd.ops import plain_ssd, ssd
 
     x, dt, A, B, C = _ssd_inputs(cuda, b, S, H, P, 1, N)
@@ -974,7 +1074,7 @@ def test_ssd_gradients_equal_the_plain_route(cuda, b, S, H, P, N, chunk,
     gs = torch.randn((b, H, P, N), generator=g, device=cuda)
     base = [x, dt, A, B, C] + ([h0] if init else [])
     ins = [t.clone().requires_grad_() for t in base]
-    before = SSD.ssd.launches
+    before, bwd = SSD.ssd.launches, SSD.ssd_bwd.launches
     y, st = ssd(*ins[:5], chunk=chunk, initial_state=ins[5] if init else None)
     assert y.grad_fn is not None and st.grad_fn is not None
     assert SSD.ssd.launches == before + 1
@@ -985,14 +1085,39 @@ def test_ssd_gradients_equal_the_plain_route(cuda, b, S, H, P, N, chunk,
     want = torch.autograd.grad((yr, sr), plain_ins, (gy, gs))
     torch.cuda.synchronize()
     assert SSD.ssd.launches == before + 1
-    for a, w in zip(got, want):
-        assert torch.equal(a, w)
+    assert SSD.ssd_bwd.launches == bwd + 1
+    _grads_close(got, want, 3e-4)
     torch.testing.assert_close(y.detach(), yr.detach(), atol=3e-4, rtol=3e-4)
     with torch.no_grad():
         y0, s0 = ssd(*ins[:5], chunk=chunk,
                      initial_state=ins[5] if init else None)
     assert y0.grad_fn is None and s0.grad_fn is None
     assert SSD.ssd.launches == before + 2
+
+
+def test_ssd_bwd_raises_on_unsupported_inputs(cuda):
+    """The backward wrapper refuses what the kernel does not take, before
+    any launch: a misaligned or strided dL/dy, a dL/dy of another type, a
+    dL/d(state) of another shape, scratch of another shape."""
+    x, dt, A, B, C = _ssd_inputs(cuda, 1, 64, 4, 32, 2, 16)
+    y, st, cb, states = SSD.ssd(x, dt, A, B, C, chunk=64, keep_scratch=True)
+    gy = torch.randn_like(x)
+    ok = (x, dt, A, B, C, cb, states, st)
+    before = SSD.ssd_bwd.launches
+    off = torch.zeros(1 + gy.numel(), device=cuda)[1:].view(gy.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        SSD.ssd_bwd(*ok, off, None, chunk=64)
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.ssd_bwd(*ok, gy.transpose(1, 2).contiguous().transpose(1, 2),
+                    None, chunk=64)
+    with pytest.raises(ValueError):
+        SSD.ssd_bwd(*ok, gy.bfloat16(), None, chunk=64)
+    with pytest.raises(ValueError):
+        SSD.ssd_bwd(*ok, gy, torch.zeros(1, 4, 16, 32, device=cuda), chunk=64)
+    with pytest.raises(ValueError):
+        SSD.ssd_bwd(x, dt, A, B, C, cb[:, :, :, :32], states, st, gy, None,
+                    chunk=64)
+    assert SSD.ssd_bwd.launches == before
 
 
 def test_profile_session_on_cuda_writes_its_trace(cuda, tmp_path):

@@ -166,9 +166,68 @@ def test_kernel_wrappers_refuse_cpu_tensors_and_count_nothing():
         SSD.ssd(torch.zeros(1, 8, 2, 16), torch.zeros(1, 8, 2),
                 torch.zeros(2), torch.zeros(1, 8, 1, 16),
                 torch.zeros(1, 8, 1, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        SSD.ssd_bwd(*_ssd_bwd_args())
     assert K.launch_counts() == {"fused_sgd_update": 0, "quantize_kernel": 0,
                                  "dequant_mean_kernel": 0,
-                                 "flash_attention": 0, "ssd": 0}
+                                 "flash_attention": 0, "ssd": 0,
+                                 "ssd_bwd": 0}
+
+
+def _ssd_bwd_args(b=1, S=8, H=2, P=16, G=1, N=16, chunk=8):
+    """ssd_bwd's arguments at a shape, zeros: the inputs, the forward's
+    scratch and final state (C·Bᵀ (b, G, nc, QP, QP), the entering states
+    (b, nc - 1, H, P, N)), dL/dy and no dL/d(final state)."""
+    Q = min(chunk, S)
+    nc, QP = -(-S // Q), -(-Q // 64) * 64
+    return (torch.zeros(b, S, H, P), torch.zeros(b, S, H), torch.zeros(H),
+            torch.zeros(b, S, G, N), torch.zeros(b, S, G, N),
+            torch.zeros(b, G, nc, QP, QP), torch.zeros(b, nc - 1, H, P, N),
+            torch.zeros(b, H, P, N), torch.zeros(b, S, H, P), None)
+
+
+@pytest.mark.parametrize("bad,match", [
+    (dict(N=24), "state dim"),            # a state width the kernel lacks
+    (dict(P=24), "multiple of 16"),       # P not a multiple of 16
+    (dict(S=300, chunk=300), "exceeds"),  # a chunk over 256 rows
+    (dict(H=3, G=2), "groups"),           # G not dividing H
+])
+def test_ssd_bwd_refuses_shapes_it_does_not_take(bad, match):
+    """The backward wrapper checks the shape before the device, so a CPU
+    call shows the shape refusal; nothing launches."""
+    SSD.ssd_bwd.launches = 0
+    kw = dict(bad)
+    chunk = kw.pop("chunk", 8)
+    with pytest.raises(ValueError, match=match):
+        SSD.ssd_bwd(*_ssd_bwd_args(chunk=chunk, **kw), chunk=chunk)
+    assert SSD.ssd_bwd.launches == 0
+
+
+@pytest.mark.parametrize("init", [False, True])
+def test_ssd_function_on_cpu_takes_the_plain_backward(init):
+    """A CPU tensor keeps the plain recompute-and-autograd backward: its
+    gradients equal autograd through ``plain_ssd`` bit for bit, and the
+    backward kernel's counter stays at 0."""
+    from repro_torch.kernels.ssd.ops import plain_ssd, ssd
+
+    g = torch.Generator().manual_seed(4)
+    x, gy = (torch.randn(2, 100, 4, 16, generator=g) for _ in range(2))
+    dt = torch.nn.functional.softplus(torch.randn(2, 100, 4, generator=g))
+    A = -torch.exp(torch.randn(4, generator=g) * 0.3)
+    B, C = (torch.randn(2, 100, 2, 16, generator=g) * 0.3 for _ in range(2))
+    base = [x, dt * 0.1, A, B, C]
+    if init:
+        base.append(torch.randn(2, 4, 16, 16, generator=g))
+    SSD.ssd_bwd.launches = 0
+    ins = [t.clone().requires_grad_() for t in base]
+    y, _ = ssd(*ins[:5], chunk=64, initial_state=ins[5] if init else None)
+    got = torch.autograd.grad(y, ins, gy)
+    pins = [t.clone().requires_grad_() for t in base]
+    yr, _ = plain_ssd(*pins[:5], 64, pins[5] if init else None)
+    want = torch.autograd.grad(yr, pins, gy)
+    assert SSD.ssd_bwd.launches == 0
+    for a, w in zip(got, want):
+        assert torch.equal(a, w)
 
 
 @pytest.mark.parametrize("impl", ["interpret", "xla"])

@@ -37,6 +37,7 @@ from repro_torch.configs.base import TrainConfig
 from repro_torch.core import local_sgd as TLS
 from repro_torch.core.stl_sgd import StagewiseDriver
 from repro_torch.kernels.ssd.ops import ssd
+from repro_torch.kernels.ssd.ref import ssd_chunked_vjp_ref
 from repro_torch.utils.convert import train_state_from_jax
 from repro_torch.utils.tree import tree_flatten_with_path
 
@@ -111,6 +112,52 @@ def test_ssd_gradients_at_a_ragged_length_match_jax_ref(S, G, init):
     want = _jax_grads(lambda x, dt, A, B, C, h0: j_ssd_ref(
         x, dt, A, B, C, initial_state=h0), arrays, init, ("y", "state"))
     _assert_close(_torch_grads(arrays, 64, init, ("y", "state")), want)
+
+
+def _vjp_passes_grads(arrays, chunk, init, use):
+    """``ref.ssd_chunked_vjp_ref`` (the backward kernel's passes in plain
+    PyTorch) for the loss of ``_torch_grads``."""
+    x, dt, A, B, C, h0, gy, gs = (None if a is None else
+                                  torch.from_numpy(a.copy()) for a in arrays)
+    got = ssd_chunked_vjp_ref(x, dt, A, B, C, chunk, h0 if init else None,
+                              gy if "y" in use else None,
+                              gs if "state" in use else None)
+    return got[:6 if init else 5]
+
+
+@pytest.mark.parametrize("use", [("y", "state"), ("y",), ("state",)])
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,chunk", [(128, 64), (256, 128), (64, 64)])
+def test_ssd_vjp_passes_match_jax_chunked(S, chunk, init, use):
+    """The backward kernel's algorithm (reverse state passing, dCB per
+    group, M's row and column sums, the seg terms against the last row's)
+    against ``jax.grad`` of the JAX model's chunked scan, as the Function's
+    gradients are held above."""
+    arrays = _inputs(2, S, 4, 16, 1, 8, seed=S + chunk)
+    want = _jax_grads(lambda x, dt, A, B, C, h0: j_ssd_chunked(
+        x, dt, A, B, C, chunk, h0), arrays, init, use)
+    _assert_close(_vjp_passes_grads(arrays, chunk, init, use), want)
+
+
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,G", [(100, 1), (130, 2), (37, 1)])
+def test_ssd_vjp_passes_at_a_ragged_length_match_jax_ref(S, G, init):
+    arrays = _inputs(1, S, 4, 16, G, 8, seed=S)
+    want = _jax_grads(lambda x, dt, A, B, C, h0: j_ssd_ref(
+        x, dt, A, B, C, initial_state=h0), arrays, init, ("y", "state"))
+    _assert_close(_vjp_passes_grads(arrays, 64, init, ("y", "state")), want)
+
+
+def test_ssd_vjp_passes_under_a_strong_decay_match_jax_ref():
+    """dt x 10: exp(cums) falls to about 1e-30 within a chunk of 100 rows.
+    d(dt A) sums dcums back over the chunk, where L's row and column sums
+    and the seg terms cancel; held within 1e-5 as the other gradients."""
+    x, dt, A, B, C, _, gy, _ = _inputs(1, 300, 4, 16, 1, 8, seed=11)
+    arrays = (x, dt * 10, A, B, C, None, gy, None)
+    assert np.exp((arrays[1][0, :100] * A).sum(0)).min() < 1e-25
+    want = _jax_grads(lambda x, dt, A, B, C, h0: j_ssd_ref(
+        x, dt, A, B, C, initial_state=h0), arrays, False, ("y",))
+    _assert_close(_vjp_passes_grads(arrays, 100, False, ("y",)), want)
 
 
 def test_ssd_keeps_the_return_types_under_grad():
